@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (pdunet_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
+  1. build every CUDA source of the port with nvcc (sm_90a), all at once;
+  2. at the serving path's shapes (pdunet_parallel: B=4, 256², 90 of 360
+     angles, P=23 pairs per group, K=180), hold each kernel against its plain
+     PyTorch version on the card, float32 and bf16 operands, both groups:
+     relative error ≤ 1e-5 (f32) / ≤ 5e-3 (bf16), TF32 off for the reference;
+  3. the adjoint dot-product test of the routed kernel pair in float32;
+  4. the serving path at full width (build_task → make_batch →
+     batch_from_images → recon_fn → PSNR/SSIM) with random weights from a
+     seed; launch counters must show every A and A† went through the kernels;
+     the card's f0 must match the plain path on the CPU, and a cut-down
+     float32 task must reconstruct the same on the card and on the CPU;
+  5. CUDA-event timings of each kernel beside its bound and its plain
+     version, a bf16 torch.matmul of stage 1's shape as a labelled yardstick,
+     and reconstruction slices/s at batch 4.
+
+Output: a ``{"kernels": [...]}`` JSON line, then the card's name and power
+limit, then the last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): FP32 on CUDA cores,
+# bf16 on tensor cores, HBM3 bandwidth. The bound of a kernel is the larger
+# of its operations over the peak for its operand type and its bytes over
+# the memory rate.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
+TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def rel(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean milliseconds of ``fn()`` over ``iters`` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def pair_cost(B, N, P, K, S):
+    """(flops, bytes) of one pair-group call, forward or adjoint (the same
+    products transposed). Stage 1: B·P·N²·K complex-by-real MACs; stage 2:
+    both members' complex phase products, B·P·N·K·2 complex MACs; stage 3:
+    B·2P·K·S complex-to-real MACs. Trig evaluations are not counted.
+    Bytes: the image and the sinogram block once each, the plan rows and the
+    (K, S) DFT matrices once."""
+    flops = 4 * B * P * N * N * K + 16 * B * P * N * K + 8 * B * P * K * S
+    nbytes = 4 * (B * N * N + B * 2 * P * S + 3 * P * N + 2 * P + K + 2 * K * S)
+    return flops, nbytes
+
+
+def profile_recon(one_recon, card, reps=3):
+    """Device time of ``reps`` recons by kernel, from torch.profiler: where
+    the time goes, and the device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_recon()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy_ms == 0:
+        print("[profile] the profiler saw no device time")
+        return
+    groups = {}
+    for e in kern:
+        n = e.key
+        g = ("projector kernels (radon_pair.cu)" if "pair_" in n
+             else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
+             else "other")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    print(f"[profile] {reps} recons under the profiler: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f} ({card})")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {g}: {ms / reps:.4f} ms per recon ({ms / busy_ms:.3f} of busy)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f} ms/recon "
+              f"x{e.count // reps:<4d} {e.key[:110]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a card",
+              file=sys.stderr)
+        return 2
+    if not (REPO / "pdunet_tpu_torch").is_dir():
+        print(f"chip_smoke: no pdunet_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[chip_smoke] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # -- 1. build ----------------------------------------------------------
+    from pdunet_tpu_torch.ops.radon import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    print(f"[chip_smoke] built {sorted(logs)} in {build_s:.2f} s")
+
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.data.synth import random_phantom_batch
+    from pdunet_tpu_torch.ops.metrics import psnr, ssim
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon.parallel import (
+        make_parallel_ops,
+        parallel_backproject,
+        parallel_project,
+    )
+    from pdunet_tpu_torch.training.tasks import build_geometries, build_task
+
+    # -- 2. kernels against their plain versions at the serving shapes ------
+    config = get_preset("pdunet_parallel")
+    B = config.train.batch_size
+    _, sparse = build_geometries(config.geometry)
+    ops32 = make_parallel_ops(sparse, dtype=torch.float32, device=dev)
+    plan = ops32.plan
+    m = plan.meta
+    N, S, K, L = m["N"], m["S"], m["K"], m["S_ext"]
+    P = m["P_x"]
+    print(f"[chip_smoke] serving plan: B={B} N={N} S={S} K={K} L={L} "
+          f"P_x={m['P_x']} P_y={m['P_y']} use_pairs={m['use_pairs']}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f = torch.randn(B, N, N, generator=gen, device=dev)
+    p = {g: torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
+
+    def args(g):
+        return [getattr(plan, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn", "msk")]
+
+    def fwd(g, cdt, impl):
+        a = args(g)
+        return impl(f, *a[:4], plan.spec, plan.Wc, plan.Ws, L, g == "x", cdt)
+
+    def adj(g, cdt, impl):
+        a = (p[g], *args(g), plan.spec, plan.Wc, plan.Ws, L, g == "x")
+        # the wrapper takes the image size N; the plain version reads it off pos
+        return impl(*a, N, cdt) if impl is ck.backproject_pair_group else impl(*a, cdt)
+
+    kernels = {
+        "project_pair_group": (fwd, ck.project_pair_group, ck._project_pair_group),
+        "backproject_pair_group": (adj, ck.backproject_pair_group,
+                                   ck._backproject_pair_group),
+    }
+    errs = {}
+    for name, (call, kern, plain) in kernels.items():
+        for cdt in (torch.float32, torch.bfloat16):
+            tname = str(cdt).split(".")[1]
+            for g in "xy":
+                out_k = call(g, cdt, kern)
+                out_p = call(g, cdt, plain)
+                torch.cuda.synchronize()
+                check(out_k.shape == out_p.shape, f"{name} shape {out_k.shape}")
+                check(bool(torch.isfinite(out_k).all()), f"{name} {tname} {g}: non-finite")
+                r = rel(out_k, out_p)
+                mae = float((out_k - out_p).abs().max())
+                print(f"[check] {name} {tname} group {g}: rel {r:.3e} "
+                      f"max_abs {mae:.3e} (tol {TOL[tname]:.0e})")
+                check(r <= TOL[tname], f"{name} {tname} {g}: rel {r} > {TOL[tname]}")
+                e = errs.setdefault((name, tname), [0.0, 0.0])
+                e[0], e[1] = max(e[0], mae), max(e[1], r)
+
+    # -- 3. adjoint dot test of the routed kernel pair ------------------------
+    x = torch.randn(B, N, N, generator=gen, device=dev)
+    y = torch.randn(B, len(sparse.angles), S, generator=gen, device=dev)
+    lhs = torch.vdot(parallel_project(plan, x).double().flatten(), y.double().flatten())
+    rhs = torch.vdot(x.double().flatten(), parallel_backproject(plan, y).double().flatten())
+    adj_rel = float(abs(lhs - rhs) / abs(lhs))
+    print(f"[check] adjoint <Ax,y> vs <x,A^T y>: rel {adj_rel:.3e} (tol 1e-5)")
+    check(adj_rel < 1e-5, f"adjoint test failed: {adj_rel}")
+
+    # -- 4. the serving path at full width ------------------------------------
+    t0 = time.perf_counter()
+    task = build_task(config, device=dev)
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] build_task({config.name}) on {dev}: "
+          f"{time.perf_counter() - t0:.2f} s, sigma {task.sigma:.6g}")
+    task.init_params(torch.Generator().manual_seed(0))
+    task.model.eval()
+    n_batches = 3
+    data_gen = torch.Generator(device=dev).manual_seed(1234)
+    ck.reset_launch_counts()
+    results = []
+    with torch.inference_mode():
+        for _ in range(n_batches):
+            clean = task.make_batch(data_gen)
+            batch = task.batch_from_images(clean["image"])
+            recon = task.recon_fn(task.model, batch)
+            results.append((batch, recon, psnr(recon, batch["image"]),
+                            ssim(recon, batch["image"])))
+    torch.cuda.synchronize()
+    launches = {"project_pair_group": ck.project_pair_group.launches,
+                "backproject_pair_group": ck.backproject_pair_group.launches}
+    # per batch: make_batch and batch_from_images each run A + FBP (one A†),
+    # recon_fn runs n_iters A and n_iters A†; every A / A† is 2 groups
+    n_iters = config.model.n_iters
+    expected = n_batches * 2 * (2 + n_iters)
+    print(f"[chip_smoke] main-path launches: {launches} (expected {expected} each)")
+    for name, n in launches.items():
+        check(n == expected, f"{name}: {n} launches on the main path, expected {expected}")
+    for i, (batch, recon, ps, ss) in enumerate(results):
+        check(recon.shape == (B, N, N), f"recon shape {tuple(recon.shape)}")
+        check(bool(torch.isfinite(recon).all()), "non-finite reconstruction")
+        check(bool(torch.isfinite(ps).all() and torch.isfinite(ss).all()),
+              "non-finite metrics")
+        f0_ps = psnr(batch["f0"], batch["image"])
+        print(f"[recon] batch {i}: PSNR {ps.tolist()} SSIM {ss.tolist()} "
+              f"(f0 PSNR {[round(v, 2) for v in f0_ps.tolist()]})")
+    # the card's synthesis + FBP against the plain path on the CPU
+    batch = results[0][0]
+    ops_cpu = make_parallel_ops(sparse, dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        img_cpu = batch["image"].cpu()
+        sino_cpu = ops_cpu.A(img_cpu)
+        f0_cpu = ops_cpu.fbp(sino_cpu)
+    sino_rel = rel(batch["sino"].cpu(), sino_cpu)
+    f0_rel = rel(batch["f0"].cpu(), f0_cpu)
+    print(f"[check] card vs CPU plain path at full size: sino rel {sino_rel:.3e}, "
+          f"f0 rel {f0_rel:.3e} (tol 1e-4: the ramp filter lifts the kernels' "
+          f"1e-6-level differences)")
+    check(sino_rel < 1e-5 and f0_rel < 1e-4, "card synthesis disagrees with the CPU")
+    # a cut-down float32 task: the whole recon on the card vs on the CPU
+    small = config.override({
+        "geometry.image_size": 32, "geometry.n_angles": 96,
+        "model.base_features": 8, "model.n_iters": 2, "model.use_bfloat16": False,
+        "train.batch_size": 2})
+    recons = []
+    for d in (dev, torch.device("cpu")):
+        t_small = build_task(small, device=d)
+        img = torch.Generator().manual_seed(7)
+        with torch.inference_mode():
+            im = random_phantom_batch(img, 2, 32, device="cpu").to(d)
+            recons.append(t_small.recon_fn(t_small.model, t_small.batch_from_images(im)).cpu())
+    small_rel = rel(recons[0], recons[1])
+    print(f"[check] small f32 task recon, card vs CPU: rel {small_rel:.3e} (tol 1e-4)")
+    check(small_rel < 1e-4, "small recon on the card disagrees with the CPU")
+
+    # -- 5. timings -------------------------------------------------------------
+    entries = []
+    fl, nb = pair_cost(B, N, P, K, S)
+    a = args("x")
+    Tm = torch.randn(P, N, 2 * K, generator=gen, device=dev).to(torch.bfloat16)
+    Fm = f.to(torch.bfloat16).reshape(1, B * N, N).expand(P, B * N, N).contiguous()
+    mm_ms = cuda_ms(lambda: torch.matmul(Fm, Tm))
+    print(f"[time] yardstick: bf16 torch.matmul of stage 1's shape "
+          f"({P} x [{B * N}x{N}] @ [{N}x{2 * K}]): {mm_ms:.4f} ms")
+    replaces = {
+        "project_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:349",
+        "backproject_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:380",
+    }
+    for name, (call, kern, plain) in kernels.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu",
+                 "replaces": replaces[name], "launches": launches[name]}
+        for cdt in (torch.bfloat16, torch.float32):
+            tname = str(cdt).split(".")[1]
+            k_ms = cuda_ms(lambda: (call("x", cdt, kern), call("y", cdt, kern))) / 2
+            p_ms = cuda_ms(lambda: (call("x", cdt, plain), call("y", cdt, plain)),
+                           iters=5) / 2
+            bound = max(fl / PEAK_FLOPS[tname], nb / PEAK_BYTES) * 1e3
+            by = "operations" if fl / PEAK_FLOPS[tname] >= nb / PEAK_BYTES else "bytes"
+            print(f"[time] {name} {tname}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}; {fl / 1e9:.3f} GFLOP, {nb / 1e6:.3f} MB "
+                  f"per call), {fl / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            suffix = "" if cdt == torch.bfloat16 else "_f32"
+            entry.update({
+                f"max_abs_err{suffix}": errs[(name, tname)][0],
+                f"rel_err{suffix}": errs[(name, tname)][1],
+                f"ms{suffix}": k_ms, f"plain_ms{suffix}": p_ms,
+                f"bound_ms{suffix}": bound, f"bound_by{suffix}": by,
+            })
+        entry["library_ms"] = None
+        entry["stage1_matmul_bf16_ms"] = mm_ms
+        entry["operand_dtype"] = "bfloat16 (f32 keys: *_f32)"
+        entries.append(entry)
+
+    def one_recon():
+        with torch.inference_mode():
+            task.recon_fn(task.model, batch)
+
+    torch.cuda.synchronize()
+    for _ in range(2):
+        one_recon()
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_recon()
+    torch.cuda.synchronize()
+    recon_s = (time.perf_counter() - t0) / reps
+    print(f"[time] recon_fn at batch {B}: {recon_s * 1e3:.3f} ms per batch, "
+          f"{B / recon_s:.2f} slices/s ({card})")
+    synth_ms = cuda_ms(lambda: task.batch_from_images(batch["image"]), iters=10)
+    print(f"[time] batch_from_images (f32 A + FBP) at batch {B}: {synth_ms:.4f} ms")
+    profile_recon(one_recon, card)
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"kernels": entries, "recon_slices_per_s": B / recon_s,
+                      "recon_ms_per_batch": recon_s * 1e3, "batch": B,
+                      "build_s": build_s, "card": card}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,95 @@
+"""Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles, at first use,
+into ``pdunet_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is of the
+source, so an edited kernel is rebuilt). Build or load failures raise.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
+
+No ``--use_fast_math``: the kernels need precise ``sincosf`` on arguments
+of ~10³ rad to hold their float32 tolerance.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+__all__ = ["SOURCES", "build", "build_all", "load_library"]
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
+SOURCES = ("radon_pair",)
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise FileNotFoundError("nvcc not found on PATH or in /usr/local/cuda/bin")
+
+
+def _target(name: str) -> tuple:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (name, lib path, Popen or None, tmp path)."""
+    src, lib = _target(name)
+    if lib.exists():
+        return name, lib, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return name, lib, proc, tmp
+
+
+def _finish(name, lib, proc, tmp) -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
+    return log
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every source at once (one nvcc each, started together) and
+    return {name: compiler log}; a source already built returns ""."""
+    started = [_start(n) for n in names]
+    return {s[0]: _finish(*s) for s in started}
+
+
+def build(name: str) -> pathlib.Path:
+    _finish(*_start(name))
+    return _target(name)[1]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build(name)))
+        return _loaded[name]

@@ -1,0 +1,161 @@
+"""Parallel-beam Radon forward / adjoint (port of ``pdunet_tpu/ops/radon/parallel.py``).
+
+``parallel_project`` / ``parallel_backproject`` run the factored DFT-domain
+pipeline of :mod:`pdunet_tpu_torch.geometry` through the mirror-pair
+kernels (``cuda_kernels.py``): the CUDA kernels for CUDA tensors, their
+plain PyTorch versions for CPU tensors. The pair is an exact transpose, so
+``make_parallel_ops`` pairs them as each other's gradient.
+
+Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
+``(..., A, S)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from pdunet_tpu_torch.geometry import ParallelGeometry, ParallelPlan, build_parallel_plan
+from pdunet_tpu_torch.ops.radon.cuda_kernels import (
+    backproject_pair_group,
+    project_pair_group,
+)
+from pdunet_tpu_torch.ops.radon.filtering import filter_sinogram
+
+__all__ = ["parallel_project", "parallel_backproject", "make_parallel_ops", "RadonOps"]
+
+_CDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _require_pairs(plan: ParallelPlan):
+    if not plan.meta["use_pairs"]:
+        raise NotImplementedError(
+            "this plan does not pair its angles; the per-angle kernels "
+            "(project_group_pallas / backproject_group_pallas in "
+            "pdunet_tpu/ops/radon/pallas_kernels.py) are not ported yet")
+
+
+def _work(x: torch.Tensor, plan: ParallelPlan):
+    """Working dtype and plan-array caster: float64 stays float64 (CPU
+    plain path, used by gradcheck), everything else computes in float32."""
+    wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return wdt, (lambda name: getattr(plan, name).to(wdt))
+
+
+def _pair_args(arr, grp):
+    return tuple(arr(f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb", "sgn"))
+
+
+def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
+    """Factored parallel-beam forward projection. image (..., N, N) → (..., A, S)."""
+    _require_pairs(plan)
+    meta = plan.meta
+    L = meta["S_ext"]
+    cdt = _CDT[meta["compute_dtype"]]
+    batch_shape = image.shape[:-2]
+    wdt, arr = _work(image, plan)
+    f = image.reshape((-1,) + tuple(image.shape[-2:])).to(wdt).contiguous()
+    spec, Wc, Ws = arr("spec"), arr("Wc"), arr("Ws")
+    parts = []
+    for grp, contract_x in (("x", True), ("y", False)):
+        if meta[f"P_{grp}"]:
+            parts.append(project_pair_group(
+                f, *_pair_args(arr, grp), spec, Wc, Ws, L, contract_x, cdt))
+    p = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    p = p.index_select(1, plan.index("pair_inv_perm"))
+    return p.reshape(batch_shape + p.shape[1:]).to(image.dtype)
+
+
+def parallel_backproject(plan: ParallelPlan, sino: torch.Tensor) -> torch.Tensor:
+    """Exact transpose of :func:`parallel_project`. sino (..., A, S) → (..., N, N)."""
+    _require_pairs(plan)
+    meta = plan.meta
+    N, L = meta["N"], meta["S_ext"]
+    cdt = _CDT[meta["compute_dtype"]]
+    batch_shape = sino.shape[:-2]
+    wdt, arr = _work(sino, plan)
+    p = sino.reshape((-1,) + tuple(sino.shape[-2:])).to(wdt)
+    spec, Wc, Ws = arr("spec"), arr("Wc"), arr("Ws")
+    f = None
+    for grp, contract_x in (("x", True), ("y", False)):
+        if meta[f"P_{grp}"]:
+            pg = p.index_select(1, plan.index(f"pair_take_{grp}"))
+            part = backproject_pair_group(
+                pg, *_pair_args(arr, grp), arr(f"pair_msk_{grp}"), spec, Wc, Ws,
+                L, contract_x, N, cdt)
+            f = part if f is None else f + part
+    return f.reshape(batch_shape + f.shape[1:]).to(sino.dtype)
+
+
+class _Project(torch.autograd.Function):
+    """A with vjp(A) = A† exactly (the factored stages transpose weight for weight)."""
+
+    @staticmethod
+    def forward(ctx, f, plan):
+        ctx.plan = plan
+        return parallel_project(plan, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        return parallel_backproject(ctx.plan, g), None
+
+
+class _Backproject(torch.autograd.Function):
+    """A† with vjp(A†) = A."""
+
+    @staticmethod
+    def forward(ctx, p, plan):
+        ctx.plan = plan
+        return parallel_backproject(plan, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        return parallel_project(ctx.plan, g), None
+
+
+class RadonOps(NamedTuple):
+    """Differentiable operator bundle handed to models."""
+
+    A: Callable[[torch.Tensor], torch.Tensor]        # image → sinogram
+    At: Callable[[torch.Tensor], torch.Tensor]       # sinogram → image (adjoint)
+    fbp: Callable[..., torch.Tensor]                 # sinogram → image (filtered)
+    geom: object
+    image_shape: tuple
+    sino_shape: tuple
+    plan: ParallelPlan
+
+
+def make_parallel_ops(geom: ParallelGeometry, dtype=torch.float32,
+                      device="cuda") -> RadonOps:
+    """Build the differentiable parallel-beam operator bundle for ``geom``.
+
+    ``dtype`` is the projector's operand type (float32 or bfloat16); its
+    inputs and outputs keep the caller's dtype.
+    """
+    plan = build_parallel_plan(geom, dtype=dtype, device=device)
+
+    def A(f):
+        return _Project.apply(f, plan)
+
+    def At(p):
+        return _Backproject.apply(p, plan)
+
+    n_angles = len(geom.angles)
+    # FBP scale: f ≈ (π/A)·Σ_a BP_a(ramp ⊛ p), and At carries the δp²/δs
+    # mass factor of the forward model, hence the δs/δp² here.
+    bp_scale = math.pi / n_angles * geom.det_spacing / (geom.pixel_spacing ** 2)
+
+    def fbp(p, filter_name: str = "ramp"):
+        return bp_scale * At(filter_sinogram(p, geom.det_spacing, filter_name))
+
+    return RadonOps(
+        A=A,
+        At=At,
+        fbp=fbp,
+        geom=geom,
+        image_shape=(geom.image_size, geom.image_size),
+        sino_shape=(n_angles, geom.det_count),
+        plan=plan,
+    )
