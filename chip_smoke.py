@@ -17,10 +17,26 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      float32 task must reconstruct the same on the card and on the CPU;
   5. CUDA-event timings of each kernel beside its bound and its plain
      version, a bf16 torch.matmul of stage 1's shape as a labelled yardstick,
-     and reconstruction slices/s at batch 4.
+     and reconstruction slices/s at batch 4;
+  6. at the radial path's shapes (pdunet_radial: 256² complex images, 128 of
+     512 golden-angle spokes of 512 samples, so the per-angle kernels see
+     B' = 2·4 = 8 real images, A_x = A_y = 64 spokes, K = 256, S = 1024),
+     hold the per-angle kernels against their plain versions, f32 and bf16,
+     both groups, to the same tolerances, and run the complex adjoint dot
+     test of the fourier-slice NUFFT (≤ 1e-5);
+  7. the radial serving path at full width (build_task("pdunet_radial") →
+     make_batch → batch_from_images(image_c) → recon_fn → PSNR/SSIM on the
+     magnitude), random weights from a seed: every per-angle kernel must be
+     launched 2·(2 + n_iters) times per batch and no pair kernel at all; the
+     card's sino and f0 must match the CPU plain path (batch 1), and a
+     cut-down f32 radial task must reconstruct the same on card and CPU;
+  8. CUDA-event timings of the per-angle kernels beside their bound, plain
+     version and stage-1 matmul yardstick, and the radial recon's slices/s
+     at batch 4.
 
-Output: a ``{"kernels": [...]}`` JSON line, then the card's name and power
-limit, then the last line ``{"ok": true, "device": {...}}``.
+Output: a ``{"kernels": [...]}`` JSON line (all four kernels), then the
+card's name and power limit, then the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +103,93 @@ def pair_cost(B, N, P, K, S):
     return flops, nbytes
 
 
+def group_cost(B, N, A, K, S):
+    """(flops, bytes) of one per-angle group call, forward or adjoint.
+    Stage 1: B·A·N²·K complex-by-real MACs; stage 2: B·A·N·K complex MACs;
+    stage 3: B·A·K·S complex-to-real MACs. Trig is not counted. Bytes: the
+    image and the sinogram block once each, the two plan rows of every angle
+    and the (K, S) matrices once."""
+    flops = 4 * B * A * N * N * K + 8 * B * A * N * K + 4 * B * A * K * S
+    nbytes = 4 * (B * N * N + B * A * S + 2 * A * N + K + 2 * K * S)
+    return flops, nbytes
+
+
+def bound_ms(flops, nbytes, tname):
+    """Least time for the work on the card and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[tname], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_kernels(kernels, errs):
+    """Each kernel against its plain version on the same inputs, f32 and
+    bf16 operands, both angle groups; records the worst errors in ``errs``."""
+    for name, (call, kern, plain) in kernels.items():
+        for cdt in (torch.float32, torch.bfloat16):
+            tname = str(cdt).split(".")[1]
+            for g in "xy":
+                out_k = call(g, cdt, kern)
+                out_p = call(g, cdt, plain)
+                torch.cuda.synchronize()
+                check(out_k.shape == out_p.shape, f"{name} shape {out_k.shape}")
+                check(bool(torch.isfinite(out_k).all()), f"{name} {tname} {g}: non-finite")
+                r = rel(out_k, out_p)
+                mae = float((out_k - out_p).abs().max())
+                print(f"[check] {name} {tname} group {g}: rel {r:.3e} "
+                      f"max_abs {mae:.3e} (tol {TOL[tname]:.0e})")
+                check(r <= TOL[tname], f"{name} {tname} {g}: rel {r} > {TOL[tname]}")
+                e = errs.setdefault((name, tname), [0.0, 0.0])
+                e[0], e[1] = max(e[0], mae), max(e[1], r)
+
+
+def time_kernels(kernels, errs, launches, cost, source, replaces, yardstick_ms, card):
+    """The ``{"kernels": [...]}`` entries: CUDA-event times of each kernel
+    and its plain version (mean of the x and y group calls), beside the
+    bound from ``cost(tname) = (flops, bytes)`` per call."""
+    entries = []
+    for name, (call, kern, plain) in kernels.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces[name], "launches": launches[name]}
+        for cdt in (torch.bfloat16, torch.float32):
+            tname = str(cdt).split(".")[1]
+            fl, nb = cost
+            k_ms = cuda_ms(lambda: (call("x", cdt, kern), call("y", cdt, kern))) / 2
+            p_ms = cuda_ms(lambda: (call("x", cdt, plain), call("y", cdt, plain)),
+                           iters=5) / 2
+            bound, by = bound_ms(fl, nb, tname)
+            print(f"[time] {name} {tname}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}; {fl / 1e9:.3f} GFLOP, {nb / 1e6:.3f} MB "
+                  f"per call), {fl / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s ({card})")
+            suffix = "" if cdt == torch.bfloat16 else "_f32"
+            entry.update({
+                f"max_abs_err{suffix}": errs[(name, tname)][0],
+                f"rel_err{suffix}": errs[(name, tname)][1],
+                f"ms{suffix}": k_ms, f"plain_ms{suffix}": p_ms,
+                f"bound_ms{suffix}": bound, f"bound_by{suffix}": by,
+            })
+        entry["library_ms"] = None
+        entry["stage1_matmul_bf16_ms"] = yardstick_ms
+        entry["operand_dtype"] = "bfloat16 (f32 keys: *_f32)"
+        entries.append(entry)
+    return entries
+
+
+def recon_rate(one_recon, B, card, label):
+    """Warm host-clock time of ``one_recon`` (ends in a synchronize)."""
+    torch.cuda.synchronize()
+    for _ in range(2):
+        one_recon()
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_recon()
+    torch.cuda.synchronize()
+    recon_s = (time.perf_counter() - t0) / reps
+    print(f"[time] {label} recon_fn at batch {B}: {recon_s * 1e3:.3f} ms per batch, "
+          f"{B / recon_s:.2f} slices/s ({card})")
+    return recon_s
+
+
 def profile_recon(one_recon, card, reps=3):
     """Device time of ``reps`` recons by kernel, from torch.profiler: where
     the time goes, and the device's idle share of the wall time."""
@@ -108,7 +211,8 @@ def profile_recon(one_recon, card, reps=3):
     groups = {}
     for e in kern:
         n = e.key
-        g = ("projector kernels (radon_pair.cu)" if "pair_" in n
+        g = ("mirror-pair projector kernels (radon_pair.cu)" if "pair_" in n
+             else "per-angle projector kernels (radon_group.cu)" if "group_" in n
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
              else "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
@@ -119,6 +223,184 @@ def profile_recon(one_recon, card, reps=3):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f} ms/recon "
               f"x{e.count // reps:<4d} {e.key[:110]}")
+
+
+def radial_phases(dev, card, gen):
+    """Phases 6-8: the per-angle kernels and the pdunet_radial serving path.
+    Returns the kernels' JSON entries and the path's summary numbers."""
+    import numpy as np
+
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.data.synth import random_phantom_batch
+    from pdunet_tpu_torch.ops.metrics import psnr, ssim
+    from pdunet_tpu_torch.ops.nufft import make_radial_ops
+    from pdunet_tpu_torch.ops.nufft.fourier_slice import fs_nufft_adjoint, fs_nufft_forward
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.training.tasks import build_geometries, build_task
+
+    # -- 6. per-angle kernels against their plain versions -------------------
+    config = get_preset("pdunet_radial")
+    B = config.train.batch_size
+    _, sparse = build_geometries(config.geometry)
+    t0 = time.perf_counter()
+    ops32 = make_radial_ops(sparse, dtype=torch.float32, device=dev)
+    print(f"[chip_smoke] make_radial_ops (fourier-slice plan + Pipe-Menon DCF on the "
+          f"host): {time.perf_counter() - t0:.2f} s")
+    plan = ops32.plan.par_plan
+    m = plan.meta
+    N, S, K, L = m["N"], m["S"], m["K"], m["S_ext"]
+    Bp = 2 * B   # (Re, Im) stacked along the batch
+    print(f"[chip_smoke] radial plan: B'={Bp} N={N} S={S} K={K} L={L} "
+          f"A_x={m['A_x']} A_y={m['A_y']} use_pairs={m['use_pairs']}")
+    check(not m["use_pairs"], "the radial backing plan must not pair")
+    f = torch.randn(Bp, N, N, generator=gen, device=dev)
+    p = {g: torch.randn(Bp, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"}
+
+    def rows(g):
+        return (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec,
+                plan.Wc, plan.Ws, L, g == "x")
+
+    def fwd(g, cdt, impl):
+        return impl(f, *rows(g), cdt)
+
+    def adj(g, cdt, impl):
+        return (impl(p[g], *rows(g), N, cdt) if impl is ck.backproject_group
+                else impl(p[g], *rows(g), cdt))
+
+    kernels = {
+        "project_group": (fwd, ck.project_group, ck._project_group),
+        "backproject_group": (adj, ck.backproject_group, ck._backproject_group),
+    }
+    errs = {}
+    check_kernels(kernels, errs)
+
+    # complex adjoint dot test of the fourier-slice NUFFT (conjugating products)
+    fs = ops32.plan
+    x = torch.complex(torch.randn(B, N, N, generator=gen, device=dev),
+                      torch.randn(B, N, N, generator=gen, device=dev))
+    y = torch.complex(torch.randn(B, sparse.n_spokes, sparse.samples_per_spoke,
+                                  generator=gen, device=dev),
+                      torch.randn(B, sparse.n_spokes, sparse.samples_per_spoke,
+                                  generator=gen, device=dev))
+    c = torch.complex128
+    lhs = torch.vdot(fs_nufft_forward(fs, x).flatten().to(c), y.flatten().to(c))
+    rhs = torch.vdot(x.flatten().to(c), fs_nufft_adjoint(fs, y).flatten().to(c))
+    dot_rel = float(abs(lhs - rhs) / abs(lhs))
+    print(f"[check] fs NUFFT adjoint <Ax,y> vs <x,A^H y>: rel {dot_rel:.3e} (tol 1e-5)")
+    check(dot_rel < 1e-5, f"fs NUFFT adjoint test failed: {dot_rel}")
+
+    # -- 7. the radial serving path at full width ------------------------------
+    t0 = time.perf_counter()
+    task = build_task(config, device=dev)
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] build_task({config.name}) on {dev}: "
+          f"{time.perf_counter() - t0:.2f} s, sigma {task.sigma:.6g}")
+    task.init_params(torch.Generator().manual_seed(0))
+    task.model.eval()
+    n_batches = 3
+    data_gen = torch.Generator(device=dev).manual_seed(1234)
+    ck.reset_launch_counts()
+    results = []
+    with torch.inference_mode():
+        for _ in range(n_batches):
+            clean = task.make_batch(data_gen)
+            batch = task.batch_from_images(clean["image_c"])
+            recon = task.recon_fn(task.model, batch)
+            results.append((batch, recon, psnr(recon, batch["image"]),
+                            ssim(recon, batch["image"])))
+    torch.cuda.synchronize()
+    launches = {name: getattr(ck, name).launches for name in
+                ("project_group", "backproject_group", "project_pair_group",
+                 "backproject_pair_group")}
+    # per batch: make_batch and batch_from_images each run A + the DCF
+    # adjoint, recon_fn n_iters A and n_iters A†; every A / A† is 2 groups
+    n_iters = config.model.n_iters
+    expected = n_batches * 2 * (2 + n_iters)
+    print(f"[chip_smoke] radial main-path launches: {launches} (expected {expected} "
+          f"per per-angle kernel, 0 per pair kernel)")
+    for name in ("project_group", "backproject_group"):
+        check(launches[name] == expected,
+              f"{name}: {launches[name]} launches on the radial path, expected {expected}")
+    for name in ("project_pair_group", "backproject_pair_group"):
+        check(launches[name] == 0, f"{name} ran on the radial path")
+    all_ps, all_ss = [], []
+    for i, (batch, recon, ps, ss) in enumerate(results):
+        check(recon.shape == (B, N, N) and recon.dtype == torch.float32,
+              f"radial recon {tuple(recon.shape)} {recon.dtype}")
+        check(bool(torch.isfinite(recon).all()), "non-finite radial reconstruction")
+        check(bool(torch.isfinite(ps).all() and torch.isfinite(ss).all()),
+              "non-finite radial metrics")
+        check(batch["sino"].shape == (B, sparse.n_spokes, sparse.samples_per_spoke),
+              f"radial sino shape {tuple(batch['sino'].shape)}")
+        f0_ps = psnr(batch["f0"].abs(), batch["image"])
+        all_ps += ps.tolist()
+        all_ss += ss.tolist()
+        print(f"[recon] radial batch {i}: PSNR {ps.tolist()} SSIM {ss.tolist()} "
+              f"(|f0| PSNR {[round(v, 2) for v in f0_ps.tolist()]})")
+    # the card's synthesis + DCF adjoint against the plain path on the CPU (batch 1)
+    batch = results[0][0]
+    ops_cpu = make_radial_ops(sparse, dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        sino_cpu = ops_cpu.A(batch["image_c"][:1].cpu())
+        f0_cpu = ops_cpu.fbp(sino_cpu)
+    sino_rel = rel(torch.view_as_real(batch["sino"][:1].cpu()), torch.view_as_real(sino_cpu))
+    f0_rel = rel(torch.view_as_real(batch["f0"][:1].cpu()), torch.view_as_real(f0_cpu))
+    print(f"[check] radial card vs CPU plain path at full size (batch 1): sino rel "
+          f"{sino_rel:.3e}, f0 rel {f0_rel:.3e} (tol 1e-5 / 1e-4: the |r|-ramp of the "
+          f"DCF lifts the kernels' 1e-6-level differences)")
+    check(sino_rel < 1e-5 and f0_rel < 1e-4, "radial card synthesis disagrees with the CPU")
+    # a cut-down float32 radial task: the whole recon on the card vs on the CPU
+    small = config.override({
+        "geometry.image_size": 32, "geometry.n_angles": 96,
+        "model.base_features": 8, "model.n_iters": 2, "model.use_bfloat16": False,
+        "train.batch_size": 2})
+    x0 = np.random.default_rng(0).standard_normal((32, 32))
+    recons = []
+    for d in (dev, torch.device("cpu")):
+        t_small = build_task(small, device=d, opnorm_x0=x0)
+        with torch.inference_mode():
+            mag = random_phantom_batch(torch.Generator().manual_seed(7), 2, 32,
+                                       nonneg=True, device="cpu")
+            ph = torch.linspace(-1.0, 1.0, 32)[None, None, :] * mag
+            im = torch.polar(mag, ph).to(d)
+            recons.append(t_small.recon_fn(t_small.model, t_small.batch_from_images(im)).cpu())
+    small_rel = rel(recons[0], recons[1])
+    print(f"[check] small f32 radial task recon (32², 24 spokes), card vs CPU: "
+          f"rel {small_rel:.3e} (tol 1e-4)")
+    check(small_rel < 1e-4, "small radial recon on the card disagrees with the CPU")
+
+    # -- 8. timings ----------------------------------------------------------------
+    A_g = m["A_x"]
+    fl = sum(group_cost(Bp, N, m[f"A_{g}"], K, S)[0] for g in "xy") / 2
+    nb = sum(group_cost(Bp, N, m[f"A_{g}"], K, S)[1] for g in "xy") / 2
+    Tm = torch.randn(A_g, N, 2 * K, generator=gen, device=dev).to(torch.bfloat16)
+    Fm = f.to(torch.bfloat16).reshape(1, Bp * N, N).expand(A_g, Bp * N, N).contiguous()
+    mm_ms = cuda_ms(lambda: torch.matmul(Fm, Tm))
+    print(f"[time] yardstick: bf16 torch.matmul of per-angle stage 1's shape "
+          f"({A_g} x [{Bp * N}x{N}] @ [{N}x{2 * K}]): {mm_ms:.4f} ms ({card})")
+    del Fm, Tm
+    replaces = {
+        "project_group": "pdunet_tpu/ops/radon/pallas_kernels.py:280",
+        "backproject_group": "pdunet_tpu/ops/radon/pallas_kernels.py:308",
+    }
+    entries = time_kernels(kernels, errs, launches, (fl, nb),
+                           "pdunet_tpu_torch/ops/radon/csrc/radon_group.cu", replaces,
+                           mm_ms, card)
+
+    def one_recon():
+        with torch.inference_mode():
+            task.recon_fn(task.model, batch)
+
+    recon_s = recon_rate(one_recon, B, card, config.name)
+    synth_ms = cuda_ms(lambda: task.batch_from_images(batch["image_c"]), iters=10)
+    print(f"[time] radial batch_from_images (f32 A + DCF adjoint) at batch {B}: "
+          f"{synth_ms:.4f} ms ({card})")
+    profile_recon(one_recon, card)
+    stats = {"recon_slices_per_s": B / recon_s, "recon_ms_per_batch": recon_s * 1e3,
+             "synth_ms": synth_ms, "batch": B, "psnr_mean": float(np.mean(all_ps)),
+             "ssim_mean": float(np.mean(all_ss)), "adjoint_dot_rel": dot_rel,
+             "sino_rel_cpu": sino_rel, "f0_rel_cpu": f0_rel, "small_rel_cpu": small_rel}
+    return entries, stats
 
 
 def main():
@@ -193,22 +475,7 @@ def main():
                                    ck._backproject_pair_group),
     }
     errs = {}
-    for name, (call, kern, plain) in kernels.items():
-        for cdt in (torch.float32, torch.bfloat16):
-            tname = str(cdt).split(".")[1]
-            for g in "xy":
-                out_k = call(g, cdt, kern)
-                out_p = call(g, cdt, plain)
-                torch.cuda.synchronize()
-                check(out_k.shape == out_p.shape, f"{name} shape {out_k.shape}")
-                check(bool(torch.isfinite(out_k).all()), f"{name} {tname} {g}: non-finite")
-                r = rel(out_k, out_p)
-                mae = float((out_k - out_p).abs().max())
-                print(f"[check] {name} {tname} group {g}: rel {r:.3e} "
-                      f"max_abs {mae:.3e} (tol {TOL[tname]:.0e})")
-                check(r <= TOL[tname], f"{name} {tname} {g}: rel {r} > {TOL[tname]}")
-                e = errs.setdefault((name, tname), [0.0, 0.0])
-                e[0], e[1] = max(e[0], mae), max(e[1], r)
+    check_kernels(kernels, errs)
 
     # -- 3. adjoint dot test of the routed kernel pair ------------------------
     x = torch.randn(B, N, N, generator=gen, device=dev)
@@ -241,6 +508,8 @@ def main():
     torch.cuda.synchronize()
     launches = {"project_pair_group": ck.project_pair_group.launches,
                 "backproject_pair_group": ck.backproject_pair_group.launches}
+    check(ck.project_group.launches == ck.backproject_group.launches == 0,
+          "a per-angle kernel ran on the pdunet_parallel path")
     # per batch: make_batch and batch_from_images each run A + FBP (one A†),
     # recon_fn runs n_iters A and n_iters A†; every A / A† is 2 groups
     n_iters = config.model.n_iters
@@ -286,9 +555,7 @@ def main():
     check(small_rel < 1e-4, "small recon on the card disagrees with the CPU")
 
     # -- 5. timings -------------------------------------------------------------
-    entries = []
     fl, nb = pair_cost(B, N, P, K, S)
-    a = args("x")
     Tm = torch.randn(P, N, 2 * K, generator=gen, device=dev).to(torch.bfloat16)
     Fm = f.to(torch.bfloat16).reshape(1, B * N, N).expand(P, B * N, N).contiguous()
     mm_ms = cuda_ms(lambda: torch.matmul(Fm, Tm))
@@ -298,57 +565,27 @@ def main():
         "project_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:349",
         "backproject_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:380",
     }
-    for name, (call, kern, plain) in kernels.items():
-        entry = {"name": name, "route": "cuda",
-                 "source": "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu",
-                 "replaces": replaces[name], "launches": launches[name]}
-        for cdt in (torch.bfloat16, torch.float32):
-            tname = str(cdt).split(".")[1]
-            k_ms = cuda_ms(lambda: (call("x", cdt, kern), call("y", cdt, kern))) / 2
-            p_ms = cuda_ms(lambda: (call("x", cdt, plain), call("y", cdt, plain)),
-                           iters=5) / 2
-            bound = max(fl / PEAK_FLOPS[tname], nb / PEAK_BYTES) * 1e3
-            by = "operations" if fl / PEAK_FLOPS[tname] >= nb / PEAK_BYTES else "bytes"
-            print(f"[time] {name} {tname}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({by}; {fl / 1e9:.3f} GFLOP, {nb / 1e6:.3f} MB "
-                  f"per call), {fl / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s")
-            suffix = "" if cdt == torch.bfloat16 else "_f32"
-            entry.update({
-                f"max_abs_err{suffix}": errs[(name, tname)][0],
-                f"rel_err{suffix}": errs[(name, tname)][1],
-                f"ms{suffix}": k_ms, f"plain_ms{suffix}": p_ms,
-                f"bound_ms{suffix}": bound, f"bound_by{suffix}": by,
-            })
-        entry["library_ms"] = None
-        entry["stage1_matmul_bf16_ms"] = mm_ms
-        entry["operand_dtype"] = "bfloat16 (f32 keys: *_f32)"
-        entries.append(entry)
+    entries = time_kernels(kernels, errs, launches, (fl, nb),
+                           "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu", replaces,
+                           mm_ms, card)
 
     def one_recon():
         with torch.inference_mode():
             task.recon_fn(task.model, batch)
 
-    torch.cuda.synchronize()
-    for _ in range(2):
-        one_recon()
-    torch.cuda.synchronize()
-    reps = 10
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        one_recon()
-    torch.cuda.synchronize()
-    recon_s = (time.perf_counter() - t0) / reps
-    print(f"[time] recon_fn at batch {B}: {recon_s * 1e3:.3f} ms per batch, "
-          f"{B / recon_s:.2f} slices/s ({card})")
+    recon_s = recon_rate(one_recon, B, card, config.name)
     synth_ms = cuda_ms(lambda: task.batch_from_images(batch["image"]), iters=10)
     print(f"[time] batch_from_images (f32 A + FBP) at batch {B}: {synth_ms:.4f} ms")
     profile_recon(one_recon, card)
 
+    radial_entries, radial_stats = radial_phases(dev, card, gen)
+
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    print(json.dumps({"kernels": entries, "recon_slices_per_s": B / recon_s,
+    print(json.dumps({"kernels": entries + radial_entries,
+                      "recon_slices_per_s": B / recon_s,
                       "recon_ms_per_batch": recon_s * 1e3, "batch": B,
-                      "build_s": build_s, "card": card}))
+                      "radial": radial_stats, "build_s": build_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))
     return 0

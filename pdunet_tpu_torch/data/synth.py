@@ -15,17 +15,19 @@ __all__ = ["sample_ellipse_params", "rasterize", "random_phantom_batch"]
 
 
 def sample_ellipse_params(generator: torch.Generator, batch_size: int,
-                          n_ellipses: int, radius: float,
+                          n_ellipses: int, radius: float, nonneg: bool = False,
                           device="cuda") -> torch.Tensor:
     """(batch, n_ellipses, 6) parameters [rho, a, b, x0, y0, phi], with
-    intensities rho in [-1, 1]."""
+    intensities rho in [-1, 1], or in [0.1, 1] when ``nonneg`` (the MRI
+    magnitude regime: a signed density would make |image| an ill-posed
+    target, and an all-negative draw a zero image)."""
     shape = (batch_size, n_ellipses)
 
     def uniform(lo, hi):
         u = torch.rand(shape, generator=generator, device=device)
         return lo + (hi - lo) * u
 
-    rho = uniform(-1.0, 1.0)
+    rho = uniform(0.1 if nonneg else -1.0, 1.0)
     a = uniform(0.08, 0.5) * radius
     b = uniform(0.08, 0.5) * radius
     r0 = uniform(0.0, 0.6) * radius
@@ -54,8 +56,10 @@ def rasterize(params: torch.Tensor, image_size: int, pixel_spacing: float = 1.0,
 
 def random_phantom_batch(generator: torch.Generator, batch_size: int, image_size: int,
                          n_ellipses: int = 8, pixel_spacing: float = 1.0,
-                         supersample: int = 2, device="cuda") -> torch.Tensor:
+                         supersample: int = 2, nonneg: bool = False,
+                         device="cuda") -> torch.Tensor:
     """Batch of random ellipse phantoms (B, N, N) made on ``device``."""
     radius = 0.45 * image_size * pixel_spacing
-    params = sample_ellipse_params(generator, batch_size, n_ellipses, radius, device)
+    params = sample_ellipse_params(generator, batch_size, n_ellipses, radius,
+                                   nonneg=nonneg, device=device)
     return rasterize(params, image_size, pixel_spacing, supersample)

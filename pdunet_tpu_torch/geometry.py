@@ -17,7 +17,8 @@ Mirror pairs: two angles whose primary direction cosines satisfy
 prim_b = ±prim_a share stage 1 (member b reuses ĝ conjugated when the sign
 is −1, with the constant C = 2(M + c_s) folded into its shift row ``shb``).
 A uniform [0, π) scan pairs θ with π − θ, so ``meta["use_pairs"]`` is true
-and A/A† run through the mirror-pair kernels.
+and A/A† run through the mirror-pair kernels; an angle set that does not
+pair (golden-angle spokes) runs through the per-angle kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParallelGeometry", "ParallelPlan", "build_parallel_plan"]
+__all__ = ["GOLDEN_ANGLE", "ParallelGeometry", "ParallelPlan", "RadialGeometry",
+           "build_parallel_plan"]
 
 
 def _uniform_angles(n_angles: int, angle_range: float, start: float) -> Tuple[float, ...]:
@@ -67,6 +69,39 @@ class ParallelGeometry:
     def subsample(self, factor: int) -> "ParallelGeometry":
         """Sparse-view geometry keeping every ``factor``-th angle."""
         return dataclasses.replace(self, angles=self.angles[::factor], n_angles=0)
+
+
+GOLDEN_ANGLE = math.pi * (3.0 - math.sqrt(5.0))  # ≈ 111.246° golden-angle increment
+
+
+@dataclasses.dataclass(frozen=True)
+class RadialGeometry:
+    """Golden-angle radial MRI k-space trajectory.
+
+    ``n_spokes`` diameter spokes through the k-space centre, spoke ``k`` at
+    angle ``k * angle_increment`` (mod 2π); ``samples_per_spoke`` uniform
+    radial samples over [-k_max, k_max) with k_max = π / pixel_spacing.
+    """
+
+    image_size: int
+    n_spokes: int
+    samples_per_spoke: int = 0     # 0 → 2 * image_size
+    pixel_spacing: float = 1.0
+    angle_increment: float = GOLDEN_ANGLE
+
+    def __post_init__(self):
+        if self.samples_per_spoke <= 0:
+            object.__setattr__(self, "samples_per_spoke", 2 * self.image_size)
+
+    @property
+    def spoke_angles(self) -> Tuple[float, ...]:
+        return tuple(
+            (k * self.angle_increment) % (2.0 * math.pi) for k in range(self.n_spokes)
+        )
+
+    def subsample(self, factor: int) -> "RadialGeometry":
+        """Golden-angle subsampling keeps the first spokes of the sequence."""
+        return dataclasses.replace(self, n_spokes=self.n_spokes // factor)
 
 
 class ParallelPlan:

@@ -9,7 +9,9 @@ Layout mapping:
       (in, out, kh, kw), spatially flipped: flax applies the kernel
       unflipped, torch's conv_transpose2d flips it.
 A PD-UNet's ``Scan_PDIteration_0`` holds every leaf stacked on axis 0 over
-iterations, with ``UNet_0`` the dual net and ``UNet_1`` the primal net.
+iterations, with ``UNet_0`` the dual net and ``UNet_1`` the primal net. A
+complex PD-UNet (``complex_ops``) has the same tree with (Re, Im) channel
+pairs: dual 6 in / 2 out, primal 4 in / 2 out.
 """
 
 from __future__ import annotations

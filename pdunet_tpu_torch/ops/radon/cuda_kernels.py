@@ -1,17 +1,25 @@
-"""Mirror-pair projector kernels: wrappers and their plain PyTorch versions.
+"""Projector kernels: wrappers and their plain PyTorch versions.
 
-``project_pair_group`` and ``backproject_pair_group`` replace the Pallas
-kernels ``project_pair_group_pallas`` / ``backproject_pair_group_pallas``
-(``pdunet_tpu/ops/radon/pallas_kernels.py``). For a CUDA tensor each
-wrapper launches the hand-written kernel in ``csrc/radon_pair.cu`` (and
-raises if it cannot); for a CPU tensor it runs the plain version below,
-which is the port of the JAX twins ``_project_pair_group`` /
-``_backproject_pair_group`` (``pdunet_tpu/ops/radon/parallel.py``).
+Two families replace the Pallas kernels of
+``pdunet_tpu/ops/radon/pallas_kernels.py``:
+
+* mirror-pair, ``project_pair_group`` / ``backproject_pair_group``
+  (``project_pair_group_pallas`` / ``backproject_pair_group_pallas``),
+  kernels in ``csrc/radon_pair.cu``, for plans whose angles pair;
+* per-angle, ``project_group`` / ``backproject_group``
+  (``project_group_pallas`` / ``backproject_group_pallas``), kernels in
+  ``csrc/radon_group.cu``, for plans whose angles do not pair (golden-angle
+  spokes, the radial fourier-slice NUFFT).
+
+For a CUDA tensor each wrapper launches its hand-written kernel (and raises
+if it cannot); for a CPU tensor it runs the plain version below, which is
+the port of the JAX twin of the same name (``_project_pair_group``,
+``_project_group``, ... in ``pdunet_tpu/ops/radon/parallel.py``).
 
 Precision contract (same as the twins): the trig arguments are f32 (or
 f64 for a float64 input on the CPU, which ``gradcheck`` uses); with
-``cdt=torch.bfloat16`` the operands T̂, φ, f or p, W and Ŝ are rounded to
-bf16 where the twin casts them, and every sum accumulates in f32.
+``cdt=torch.bfloat16`` the operands T̂, φ, f or p, W and Ŝ (or h) are
+rounded to bf16 where the twin casts them, and every sum accumulates in f32.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
 call does not count.
@@ -25,7 +33,8 @@ import math
 
 import torch
 
-__all__ = ["project_pair_group", "backproject_pair_group", "reset_launch_counts"]
+__all__ = ["project_pair_group", "backproject_pair_group", "project_group",
+           "backproject_group", "reset_launch_counts"]
 
 
 def _q(x: torch.Tensor, cdt) -> torch.Tensor:
@@ -111,6 +120,53 @@ def _backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
             + torch.einsum(sub1t, _q(h_im, cdt), Ts))
 
 
+def _spectral_tensors(pos, shift, spec, L, cdt=torch.float32):
+    """Per-angle splat T̂ and shear phase φ, each (A_g, N, K):
+    T̂ = spec·e^{−2πik·pos/L}, φ = e^{+2πik·shift/L}."""
+    K = spec.shape[0]
+    k = _kfreq(K, L, pos.dtype, pos.device)
+    ang_t = pos[:, :, None] * k[None, None, :]
+    Tc = _q(spec * torch.cos(ang_t), cdt)
+    Ts = _q(-spec * torch.sin(ang_t), cdt)
+    ang_p = shift[:, :, None] * k[None, None, :]
+    return Tc, Ts, _q(torch.cos(ang_p), cdt), _q(torch.sin(ang_p), cdt)
+
+
+def _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                   cdt=torch.float32):
+    """Plain per-angle forward of one angle group: f (B,N,N) → (B, A_g, S).
+    ĝ = f·T̂ (stage 1), Ŝ = Σ_rows ĝ·φ (stage 2), p = Re Ŝ·Wc − Im Ŝ·Ws
+    (stage 3); ``contract_x`` contracts the image x-axis (else y)."""
+    Tc, Ts, Pc, Ps = _spectral_tensors(pos, shift, spec, L, cdt)
+    f = _q(f, cdt)
+    Wc, Ws = _q(Wc, cdt), _q(Ws, cdt)
+    sub1 = "bji,aik->bajk" if contract_x else "bji,ajk->baik"
+    gr = torch.einsum(sub1, f, Tc)
+    gi = torch.einsum(sub1, f, Ts)
+    sub2 = "bajk,ajk->bak" if contract_x else "baik,aik->bak"
+    s_re = torch.einsum(sub2, gr, Pc) - torch.einsum(sub2, gi, Ps)
+    s_im = torch.einsum(sub2, gr, Ps) + torch.einsum(sub2, gi, Pc)
+    return (torch.einsum("bak,ks->bas", _q(s_re, cdt), Wc)
+            - torch.einsum("bak,ks->bas", _q(s_im, cdt), Ws))
+
+
+def _backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                       cdt=torch.float32):
+    """Plain exact transpose of :func:`_project_group`:
+    p (B, A_g, S) → (B, N, N), summed over the group's angles."""
+    Tc, Ts, Pc, Ps = _spectral_tensors(pos, shift, spec, L, cdt)
+    p = _q(p, cdt)
+    Wc, Ws = _q(Wc, cdt), _q(Ws, cdt)
+    s_re = _q(torch.einsum("bas,ks->bak", p, Wc), cdt)
+    s_im = _q(-torch.einsum("bas,ks->bak", p, Ws), cdt)
+    sub2t = "bak,ajk->bajk" if contract_x else "bak,aik->baik"
+    h_re = torch.einsum(sub2t, s_re, Pc) + torch.einsum(sub2t, s_im, Ps)
+    h_im = -torch.einsum(sub2t, s_re, Ps) + torch.einsum(sub2t, s_im, Pc)
+    sub1t = "bajk,aik->bji" if contract_x else "baik,ajk->bji"
+    return (torch.einsum(sub1t, _q(h_re, cdt), Tc)
+            + torch.einsum(sub1t, _q(h_im, cdt), Ts))
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -119,19 +175,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+_F = ctypes.c_float
+
+# C entry point → argument types; "radon_<family>_<op>" lives in
+# csrc/radon_<family>.cu
+_ARGTYPES = {
+    "radon_pair_project": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
+    "radon_pair_backproject": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    "radon_group_project": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    "radon_group_backproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """Build (at first use) and bind the kernels' shared library."""
+def _fn(name: str):
+    """Build (at first use) the library holding ``name`` and bind it."""
     from pdunet_tpu_torch.ops.radon._build import load_library
 
-    lib = load_library("radon_pair")
-    for fn in (lib.radon_pair_project, lib.radon_pair_backproject):
-        fn.restype = ctypes.c_int
-    lib.radon_pair_project.argtypes = (
-        [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _I, _P])
-    lib.radon_pair_backproject.argtypes = (
-        [_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _P])
-    return lib
+    fn = getattr(load_library(name.rsplit("_", 1)[0]), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    return fn
 
 
 def _check(name, t, shape, device):
@@ -151,9 +215,13 @@ def _compute_flag(cdt) -> int:
     return int(cdt == torch.bfloat16)
 
 
-def _check_dispatch(x: torch.Tensor, L: int, K: int):
+def _check_device(x: torch.Tensor):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}; use a CPU or CUDA tensor")
+
+
+def _check_dispatch(x: torch.Tensor, L: int, K: int):
+    _check_device(x)
     if K != L // 2 + 1:
         raise ValueError(f"spec has K={K} frequencies, expected L//2+1={L // 2 + 1}")
 
@@ -190,7 +258,7 @@ def project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().radon_pair_project(
+        rc = _fn("radon_pair_project")(
             f.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
             sgn.data_ptr(), spec.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
             shat.data_ptr(), out.data_ptr(), B, N, P, K, S, 2.0 * math.pi / L,
@@ -228,7 +296,7 @@ def backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
     shat = torch.empty((B, P, 2, K, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().radon_pair_backproject(
+        rc = _fn("radon_pair_backproject")(
             p.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
             sgn.data_ptr(), msk.data_ptr(), spec.data_ptr(), Wc.data_ptr(),
             Ws.data_ptr(), shat.data_ptr(), out.data_ptr(), B, N, P, K, S,
@@ -238,10 +306,97 @@ def backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
     return out
 
 
+def _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev):
+    for name, t in (("pos", pos), ("shift", shift)):
+        _check(name, t, (A, N), dev)
+    _check("spec", spec, (K,), dev)
+    _check("Wc", Wc, (K, S), dev)
+    _check("Ws", Ws, (K, S), dev)
+
+
+def project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                  cdt=torch.float32):
+    """Fused per-angle forward for one angle group:
+    f (B,N,N) → (B, A_g, S) float32. K and S are read off ``Wc``; no
+    relation between K and L is assumed.
+
+    CPU tensors run :func:`_project_group`; CUDA tensors launch the kernel
+    of ``csrc/radon_group.cu``."""
+    if f.device.type == "cpu":
+        return _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+    _check_device(f)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    B, N, _ = f.shape
+    A = pos.shape[0]
+    dev = f.device
+    _check("f", f, (B, N, N), dev)
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _fn("radon_group_project")(
+            f.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
+            Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(), out.data_ptr(),
+            B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16, stream)
+    project_group.launches += 1
+    _raise_on(rc, "project_group")
+    return out
+
+
+#: adjoint output tile edge of csrc/radon_group.cu (GR_AD_T)
+_GROUP_ADJ_TILE = 64
+
+
+def adjoint_splits(B: int, N: int, A: int, n_sms: int) -> int:
+    """How many angle slices the per-angle adjoint splits its angle loop
+    into, so that about four blocks per SM are in flight; each slice writes
+    a partial image and a second pass sums them in a fixed order."""
+    blocks = B * math.ceil(N / _GROUP_ADJ_TILE) ** 2
+    return max(1, min(A, math.ceil(4 * n_sms / blocks)))
+
+
+def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
+                      cdt=torch.float32):
+    """Fused per-angle adjoint for one angle group:
+    p (B, A_g, S) → (B, N, N) float32, the y group already transposed.
+
+    CPU tensors run :func:`_backproject_group`; CUDA tensors launch the
+    kernel of ``csrc/radon_group.cu``."""
+    if p.device.type == "cpu":
+        return _backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+    _check_device(p)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    B, A, _ = p.shape
+    dev = p.device
+    _check("p", p, (B, A, S), dev)
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    G = adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
+    part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
+            if G > 1 else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _fn("radon_group_backproject")(
+            p.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
+            Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16, stream)
+    backproject_group.launches += 1
+    _raise_on(rc, "backproject_group")
+    return out
+
+
 project_pair_group.launches = 0
 backproject_pair_group.launches = 0
+project_group.launches = 0
+backproject_group.launches = 0
 
 
 def reset_launch_counts():
-    project_pair_group.launches = 0
-    backproject_pair_group.launches = 0
+    for fn in (project_pair_group, backproject_pair_group, project_group,
+               backproject_group):
+        fn.launches = 0

@@ -1,10 +1,12 @@
 """Parallel-beam Radon forward / adjoint (port of ``pdunet_tpu/ops/radon/parallel.py``).
 
 ``parallel_project`` / ``parallel_backproject`` run the factored DFT-domain
-pipeline of :mod:`pdunet_tpu_torch.geometry` through the mirror-pair
-kernels (``cuda_kernels.py``): the CUDA kernels for CUDA tensors, their
-plain PyTorch versions for CPU tensors. The pair is an exact transpose, so
-``make_parallel_ops`` pairs them as each other's gradient.
+pipeline of :mod:`pdunet_tpu_torch.geometry` through the projector kernels
+(``cuda_kernels.py``): the mirror-pair kernels when the plan pairs its
+angles (``meta["use_pairs"]``), the per-angle kernels otherwise; the CUDA
+kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
+Each pair is an exact transpose, so ``make_parallel_ops`` pairs them as
+each other's gradient.
 
 Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
 ``(..., A, S)``.
@@ -19,7 +21,9 @@ import torch
 
 from pdunet_tpu_torch.geometry import ParallelGeometry, ParallelPlan, build_parallel_plan
 from pdunet_tpu_torch.ops.radon.cuda_kernels import (
+    backproject_group,
     backproject_pair_group,
+    project_group,
     project_pair_group,
 )
 from pdunet_tpu_torch.ops.radon.filtering import filter_sinogram
@@ -27,14 +31,6 @@ from pdunet_tpu_torch.ops.radon.filtering import filter_sinogram
 __all__ = ["parallel_project", "parallel_backproject", "make_parallel_ops", "RadonOps"]
 
 _CDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _require_pairs(plan: ParallelPlan):
-    if not plan.meta["use_pairs"]:
-        raise NotImplementedError(
-            "this plan does not pair its angles; the per-angle kernels "
-            "(project_group_pallas / backproject_group_pallas in "
-            "pdunet_tpu/ops/radon/pallas_kernels.py) are not ported yet")
 
 
 def _work(x: torch.Tensor, plan: ParallelPlan):
@@ -50,7 +46,6 @@ def _pair_args(arr, grp):
 
 def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
     """Factored parallel-beam forward projection. image (..., N, N) → (..., A, S)."""
-    _require_pairs(plan)
     meta = plan.meta
     L = meta["S_ext"]
     cdt = _CDT[meta["compute_dtype"]]
@@ -58,19 +53,23 @@ def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
     wdt, arr = _work(image, plan)
     f = image.reshape((-1,) + tuple(image.shape[-2:])).to(wdt).contiguous()
     spec, Wc, Ws = arr("spec"), arr("Wc"), arr("Ws")
+    pairs = meta["use_pairs"]
     parts = []
     for grp, contract_x in (("x", True), ("y", False)):
-        if meta[f"P_{grp}"]:
+        if pairs and meta[f"P_{grp}"]:
             parts.append(project_pair_group(
                 f, *_pair_args(arr, grp), spec, Wc, Ws, L, contract_x, cdt))
+        elif not pairs and meta[f"A_{grp}"]:
+            parts.append(project_group(
+                f, arr(f"pos_{grp}"), arr(f"shift_{grp}"), spec, Wc, Ws, L,
+                contract_x, cdt))
     p = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-    p = p.index_select(1, plan.index("pair_inv_perm"))
+    p = p.index_select(1, plan.index("pair_inv_perm" if pairs else "inv_perm"))
     return p.reshape(batch_shape + p.shape[1:]).to(image.dtype)
 
 
 def parallel_backproject(plan: ParallelPlan, sino: torch.Tensor) -> torch.Tensor:
     """Exact transpose of :func:`parallel_project`. sino (..., A, S) → (..., N, N)."""
-    _require_pairs(plan)
     meta = plan.meta
     N, L = meta["N"], meta["S_ext"]
     cdt = _CDT[meta["compute_dtype"]]
@@ -78,14 +77,22 @@ def parallel_backproject(plan: ParallelPlan, sino: torch.Tensor) -> torch.Tensor
     wdt, arr = _work(sino, plan)
     p = sino.reshape((-1,) + tuple(sino.shape[-2:])).to(wdt)
     spec, Wc, Ws = arr("spec"), arr("Wc"), arr("Ws")
+    pairs = meta["use_pairs"]
     f = None
     for grp, contract_x in (("x", True), ("y", False)):
-        if meta[f"P_{grp}"]:
+        if pairs and meta[f"P_{grp}"]:
             pg = p.index_select(1, plan.index(f"pair_take_{grp}"))
             part = backproject_pair_group(
                 pg, *_pair_args(arr, grp), arr(f"pair_msk_{grp}"), spec, Wc, Ws,
                 L, contract_x, N, cdt)
-            f = part if f is None else f + part
+        elif not pairs and meta[f"A_{grp}"]:
+            pg = p.index_select(1, plan.index(f"idx_{grp}"))
+            part = backproject_group(
+                pg, arr(f"pos_{grp}"), arr(f"shift_{grp}"), spec, Wc, Ws, L,
+                contract_x, N, cdt)
+        else:
+            continue
+        f = part if f is None else f + part
     return f.reshape(batch_shape + f.shape[1:]).to(sino.dtype)
 
 

@@ -61,15 +61,16 @@ def test_serving_plan_equals_jax():
 
 
 def test_unpaired_plan_equals_jax_and_is_refused():
+    """A golden-angle plan equals JAX's and is refused by the pair path
+    (use_pairs false, no pair rows): the per-angle operators take it."""
     angles = tuple((k * GOLDEN_ANGLE) % math.pi for k in range(16))
     jp = jax_plan(JaxGeometry(image_size=32, angles=angles))
     tp = build_parallel_plan(ParallelGeometry(image_size=32, angles=angles), device="cpu")
     _assert_same_plan(jp, tp)
     assert not tp.meta["use_pairs"]
-    with pytest.raises(NotImplementedError, match="per-angle kernels"):
-        parallel_project(tp, torch.zeros(32, 32))
-    with pytest.raises(NotImplementedError, match="per-angle kernels"):
-        parallel_backproject(tp, torch.zeros(16, 32))
+    assert tp.meta["P_x"] == tp.meta["P_y"] == 0 and tp.pair_pos_x.shape == (0, 32)
+    assert parallel_project(tp, torch.zeros(32, 32)).shape == (16, 32)
+    assert parallel_backproject(tp, torch.zeros(16, 32)).shape == (32, 32)
 
 
 def test_subsample_and_defaults():

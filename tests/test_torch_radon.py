@@ -6,20 +6,29 @@ and the routed operators against the Pallas kernels in interpret mode, at
 the tolerances of tests/test_pallas_kernels.py: 1e-5 relative in float32,
 5e-3 with bf16 operands (rounding of bf16 operands made in a different
 order), and 2e-5 against the per-angle einsum operator (pairing substitutes
-prim_b by ±prim_a of independently f32-rounded rows). The kernels
-themselves run only on a card: chip_smoke.py holds them against the same
-plain versions there.
+prim_b by ±prim_a of independently f32-rounded rows). Plans whose angles
+do not pair (golden-angle angle sets) run the per-angle operator, held the
+same way against _project_group / _backproject_group and the per-angle
+Pallas kernels. The kernels themselves run only on a card: chip_smoke.py
+holds them against the same plain versions there.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pdunet_tpu.geometry import GOLDEN_ANGLE
 from pdunet_tpu.geometry import ParallelGeometry as JaxGeometry
 from pdunet_tpu.geometry import build_parallel_plan as jax_plan
 from pdunet_tpu.ops.radon import filtering as jax_filtering
 from pdunet_tpu.ops.radon import parallel as jax_parallel
+from pdunet_tpu.ops.radon.pallas_kernels import (
+    backproject_group_pallas,
+    project_group_pallas,
+)
 from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
 from pdunet_tpu_torch.ops.radon import cuda_kernels, filtering, parallel
 
@@ -213,3 +222,137 @@ def test_ops_bundle_and_fbp_match_jax(bf16):
     assert rel(tops.fbp(torch.from_numpy(sino)), jops.fbp(jnp.asarray(sino))) < tol
     assert rel(tops.fbp(torch.from_numpy(sino), "hann"),
                jops.fbp(jnp.asarray(sino), "hann")) < tol
+
+
+# -- plans whose angles do not pair: the per-angle operator ------------------
+
+_GOLDEN = tuple((k * GOLDEN_ANGLE) % math.pi for k in range(16))
+
+
+def _golden_plans(bf16=False):
+    jp = jax_plan(JaxGeometry(image_size=N, angles=_GOLDEN),
+                  dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    tp = build_parallel_plan(ParallelGeometry(image_size=N, angles=_GOLDEN),
+                             dtype=torch.bfloat16 if bf16 else torch.float32,
+                             device="cpu")
+    assert not tp.meta["use_pairs"] and tp.meta["A_x"] and tp.meta["A_y"]
+    return jp, tp
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return _golden_plans()
+
+
+@pytest.mark.parametrize("contract_x", [True, False], ids=["x", "y"])
+@pytest.mark.parametrize("bf16,tol", _BF16, ids=["f32", "bf16"])
+def test_project_group_plain_matches_jax_twin(golden, contract_x, bf16, tol):
+    """Per-angle forward on a golden-angle plan (K = L//2+1 there, unlike
+    the fourier-slice plan of tests/test_torch_radial.py); in f32 also
+    against project_group_pallas in interpret mode."""
+    jp, tp = golden
+    grp = "x" if contract_x else "y"
+    L = tp.meta["S_ext"]
+    f = np.random.default_rng(10).standard_normal((2, N, N)).astype(np.float32)
+    jargs = (getattr(jp, f"pos_{grp}"), getattr(jp, f"shift_{grp}"), jp.spec, jp.Wc,
+             jp.Ws, L, contract_x)
+    ref = jax_parallel._project_group(jnp.asarray(f), *jargs,
+                                      cdt=jnp.bfloat16 if bf16 else jnp.float32)
+    out = cuda_kernels.project_group(
+        torch.from_numpy(f), getattr(tp, f"pos_{grp}"), getattr(tp, f"shift_{grp}"),
+        tp.spec, tp.Wc, tp.Ws, L, contract_x,
+        cdt=torch.bfloat16 if bf16 else torch.float32)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert rel(out, ref) < tol
+    if not bf16:
+        assert rel(out, project_group_pallas(jnp.asarray(f), *jargs, interpret=True)) < tol
+
+
+@pytest.mark.parametrize("contract_x", [True, False], ids=["x", "y"])
+@pytest.mark.parametrize("bf16,tol", _BF16, ids=["f32", "bf16"])
+def test_backproject_group_plain_matches_jax_twin(golden, contract_x, bf16, tol):
+    jp, tp = golden
+    grp = "x" if contract_x else "y"
+    L, A = tp.meta["S_ext"], tp.meta[f"A_{grp}"]
+    p = np.random.default_rng(11).standard_normal((2, A, N)).astype(np.float32)
+    jargs = (getattr(jp, f"pos_{grp}"), getattr(jp, f"shift_{grp}"), jp.spec, jp.Wc,
+             jp.Ws, L, contract_x)
+    ref = jax_parallel._backproject_group(jnp.asarray(p), *jargs,
+                                          cdt=jnp.bfloat16 if bf16 else jnp.float32)
+    out = cuda_kernels.backproject_group(
+        torch.from_numpy(p), getattr(tp, f"pos_{grp}"), getattr(tp, f"shift_{grp}"),
+        tp.spec, tp.Wc, tp.Ws, L, contract_x, N,
+        cdt=torch.bfloat16 if bf16 else torch.float32)
+    assert out.dtype == torch.float32 and out.shape == ref.shape == (2, N, N)
+    assert rel(out, ref) < tol
+    if not bf16:
+        pal = backproject_group_pallas(jnp.asarray(p), *jargs, N, interpret=True)
+        assert rel(out, pal) < tol
+
+
+@pytest.mark.parametrize("bf16,tol", _BF16, ids=["f32", "bf16"])
+def test_unpaired_routed_operators_match_jax(bf16, tol):
+    """The unpaired dispatch (x and y groups concatenated and reordered by
+    inv_perm; the adjoint takes idx_x / idx_y per group and sums) against
+    JAX's per-angle operator."""
+    jp, tp = _golden_plans(bf16)
+    rng = np.random.default_rng(12)
+    f = rng.standard_normal((2, N, N)).astype(np.float32)
+    sino_j = jax_parallel.parallel_project(jp, jnp.asarray(f), impl="einsum")
+    sino_t = parallel.parallel_project(tp, torch.from_numpy(f))
+    assert sino_t.shape == sino_j.shape == (2, 16, N)
+    assert rel(sino_t, sino_j) < tol
+    q = rng.standard_normal(sino_j.shape).astype(np.float32)
+    bp_j = jax_parallel.parallel_backproject(jp, jnp.asarray(q), impl="einsum")
+    bp_t = parallel.parallel_backproject(tp, torch.from_numpy(q))
+    assert rel(bp_t, bp_j) < tol
+    if not bf16:
+        sino_p = jax_parallel.parallel_project(jp, jnp.asarray(f), impl="pallas",
+                                               interpret=True)
+        bp_p = jax_parallel.parallel_backproject(jp, jnp.asarray(q), impl="pallas",
+                                                 interpret=True)
+        assert rel(sino_t, sino_p) < tol and rel(bp_t, bp_p) < tol
+
+
+def test_unpaired_adjoint_dot_product_and_gradcheck(golden):
+    _, tp = golden
+    gen = torch.Generator().manual_seed(13)
+    f = torch.randn(3, N, N, generator=gen)
+    q = torch.randn(3, 16, N, generator=gen)
+    lhs = torch.vdot(parallel.parallel_project(tp, f).flatten().double(),
+                     q.flatten().double())
+    rhs = torch.vdot(f.flatten().double(),
+                     parallel.parallel_backproject(tp, q).flatten().double())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-5
+    angles = tuple((k * GOLDEN_ANGLE) % math.pi for k in range(5))
+    ops = parallel.make_parallel_ops(ParallelGeometry(image_size=12, angles=angles),
+                                     device="cpu")
+    assert not ops.plan.meta["use_pairs"]
+    x = torch.randn(1, 12, 12, dtype=torch.float64, generator=gen, requires_grad=True)
+    y = torch.randn(1, 5, 12, dtype=torch.float64, generator=gen, requires_grad=True)
+    assert torch.autograd.gradcheck(ops.A, (x,), eps=1e-6, atol=1e-7, rtol=1e-6)
+    assert torch.autograd.gradcheck(ops.At, (y,), eps=1e-6, atol=1e-7, rtol=1e-6)
+
+
+def test_group_wrappers_count_nothing_on_cpu_and_refuse_other_devices(golden):
+    _, tp = golden
+    cuda_kernels.reset_launch_counts()
+    parallel.parallel_backproject(tp, parallel.parallel_project(tp, torch.zeros(1, N, N)))
+    assert cuda_kernels.project_group.launches == 0
+    assert cuda_kernels.backproject_group.launches == 0
+    args = (tp.pos_x, tp.shift_x, tp.spec, tp.Wc, tp.Ws, tp.meta["S_ext"], True)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_kernels.project_group(torch.zeros(1, N, N, device="meta"), *args)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_kernels.backproject_group(
+            torch.zeros(1, tp.meta["A_x"], N, device="meta"), *args, N)
+
+
+def test_adjoint_splits_fill_the_card():
+    """The per-angle adjoint's angle split: about four 64x64-tile blocks per
+    SM, never more slices than angles, one slice when the tiles alone fill
+    the card."""
+    assert cuda_kernels.adjoint_splits(8, 256, 64, 132) == 5    # 128 tiles → 640 blocks
+    assert cuda_kernels.adjoint_splits(2, 256, 64, 132) == 17
+    assert cuda_kernels.adjoint_splits(2, 32, 3, 132) == 3
+    assert cuda_kernels.adjoint_splits(64, 256, 64, 132) == 1
