@@ -32,9 +32,24 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      cut-down f32 radial task must reconstruct the same on card and CPU;
   8. CUDA-event timings of the per-angle kernels beside their bound, plain
      version and stage-1 matmul yardstick, and the radial recon's slices/s
-     at batch 4.
+     at batch 4;
+  9. the two kernel probes as a user runs them (``python -m
+     pdunet_tpu_torch.scripts.trig_proto`` / ``pack_proto``: flagship plan,
+     256², 90 of 360 angles, B=32, their own checks and timings); launch
+     counters must show each probe kernel ran;
+ 10. at those shapes, each probe kernel (doubling and no-trig pair forward,
+     packed per-angle forward and adjoint) against its plain version, f32
+     and bf16, both groups (≤ 1e-5 / ≤ 5e-3); the packed kernels with exact
+     trig in bf16 too; packed = shipped per-angle kernels in f32 (≤ 1e-5);
+     the packed pair's adjoint dot test in f32; doubling within 2e-2 of the
+     exact-trig pair kernel;
+ 11. CUDA-event timings of the probe kernels beside their bound, plain
+     version and stage-1 matmul yardstick;
+ 12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
+     JSON row, and launch counters showing it ran the pair kernels only.
 
-Output: a ``{"kernels": [...]}`` JSON line (all four kernels), then the
+Output: a ``{"kernels": [...]}`` JSON line (eight kernels: the six TPU
+kernel rows, row 5 as its doubling and no-trig variants), then the
 card's name and power limit, then the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -403,6 +418,179 @@ def radial_phases(dev, card, gen):
     return entries, stats
 
 
+#: the probe kernels (csrc/radon_proto.cu) and the Pallas kernels they replace
+PROBE_REPLACES = {
+    "project_pair_group_doubling": "scripts/trig_proto.py:169",
+    "project_pair_group_notrig": "scripts/trig_proto.py:169",
+    "project_group_packed": "scripts/pack_proto.py:102",
+    "backproject_group_packed": "scripts/pack_proto.py:127",
+}
+
+
+def probe_phases(dev, card, gen):
+    """Phases 9-11: the two kernel probes as a user runs them, their kernels
+    against their plain versions, and their timings. Returns the kernels'
+    JSON entries."""
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+    from pdunet_tpu_torch.scripts import pack_proto, trig_proto
+
+    # -- 9. the probe scripts (flagship plan, B=32): counts from 0 around them
+    pk.reset_launch_counts()
+    check(trig_proto.main([]) == 0, "trig_proto failed")
+    check(pack_proto.main([]) == 0, "pack_proto failed")
+    torch.cuda.synchronize()
+    launches = {name: getattr(pk, name).launches for name in PROBE_REPLACES}
+    print(f"[chip_smoke] probe-script launches: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the probe scripts")
+
+    # -- 10. each probe kernel against its plain version at the probes' shapes
+    plan, f = trig_proto.setup(dev)
+    m = plan.meta
+    B, N, S, K, L = f.shape[0], m["N"], m["S"], m["K"], m["S_ext"]
+    print(f"[chip_smoke] probe plan: B={B} N={N} S={S} K={K} L={L} P_x={m['P_x']} "
+          f"P_y={m['P_y']} A_x={m['A_x']} A_y={m['A_y']}")
+
+    def pair(g):
+        return [getattr(plan, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn")]
+
+    def rows(g):
+        return (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec,
+                plan.Wc, plan.Ws, L, g == "x")
+
+    seeds = {g: [torch.from_numpy(s).to(dev) for s in pk.phase_seeds(*pair(g)[:3], K, L)]
+             for g in "xy"}
+    p = {g: torch.randn(B, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"}
+
+    def dbl(g, cdt, impl):
+        return impl(f, *seeds[g], pair(g)[3], plan.spec, plan.Wc, plan.Ws, g == "x", cdt)
+
+    def notrig(g, cdt, impl):
+        return impl(f, *pair(g), plan.spec, plan.Wc, plan.Ws, L, g == "x", cdt)
+
+    def pfwd(g, cdt, impl):
+        return impl(f, *rows(g), cdt)
+
+    def padj(g, cdt, impl):
+        return (impl(p[g], *rows(g), N, cdt) if impl is pk.backproject_group_packed
+                else impl(p[g], *rows(g), cdt))
+
+    kernels = {
+        "project_pair_group_doubling": (dbl, pk.project_pair_group_doubling,
+                                        pk._project_pair_group_doubling),
+        "project_pair_group_notrig": (notrig, pk.project_pair_group_notrig,
+                                      pk._project_pair_group_notrig),
+        "project_group_packed": (pfwd, pk.project_group_packed, pk._project_group_packed),
+        "backproject_group_packed": (padj, pk.backproject_group_packed,
+                                     pk._backproject_group_packed),
+    }
+    errs = {}
+    check_kernels(kernels, errs)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for g in "xy":
+        # the packed kernels with exact trig in bf16 (the probe's like-with-like pair)
+        r = rel(pk.project_group_packed(f, *rows(g), bf16, doubling=False),
+                pk._project_group_packed(f, *rows(g), bf16, doubling=False))
+        ra = rel(pk.backproject_group_packed(p[g], *rows(g), N, bf16, doubling=False),
+                 pk._backproject_group_packed(p[g], *rows(g), bf16, doubling=False))
+        print(f"[check] packed exact-trig bf16 group {g}: fwd rel {r:.3e}, adj rel {ra:.3e} "
+              f"(tol 5e-3)")
+        check(r <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "packed exact-trig kernel")
+        # float32: packed is the shipped per-angle operator
+        r = rel(pk.project_group_packed(f, *rows(g), f32), ck.project_group(f, *rows(g), f32))
+        ra = rel(pk.backproject_group_packed(p[g], *rows(g), N, f32),
+                 ck.backproject_group(p[g], *rows(g), N, f32))
+        print(f"[check] packed vs shipped per-angle kernels, f32 group {g}: fwd rel {r:.3e}, "
+              f"adj rel {ra:.3e} (tol 1e-5)")
+        check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the shipped ones in f32")
+        # doubling against the exact-trig pair kernel: the probe's 2e-2
+        for cdt in (f32, bf16):
+            r = rel(dbl(g, cdt, pk.project_pair_group_doubling),
+                    ck.project_pair_group(f, *pair(g), plan.spec, plan.Wc, plan.Ws, L,
+                                          g == "x", cdt))
+            print(f"[check] doubling vs exact-trig pair kernel, {cdt} group {g}: rel {r:.3e} "
+                  f"(tol 2e-2)")
+            check(r < 2e-2, "doubling drifts from the exact-trig pair kernel")
+        # the packed pair is an exact transpose in float32
+        x = torch.randn(B, N, N, generator=gen, device=dev)
+        y = torch.randn(B, m[f"A_{g}"], S, generator=gen, device=dev)
+        lhs = torch.vdot(pk.project_group_packed(x, *rows(g), f32).double().flatten(),
+                         y.double().flatten())
+        rhs = torch.vdot(x.double().flatten(),
+                         pk.backproject_group_packed(y, *rows(g), N, f32).double().flatten())
+        dot_rel = float(abs(lhs - rhs) / abs(lhs))
+        print(f"[check] packed adjoint <Ax,y> vs <x,A^T y>, group {g}: rel {dot_rel:.3e} "
+              f"(tol 1e-5)")
+        check(dot_rel < 1e-5, f"packed adjoint test failed: {dot_rel}")
+
+    # -- 11. timings beside the bound, the plain version and a matmul yardstick
+    Tm = torch.randn(m["P_x"], N, 2 * K, generator=gen, device=dev).to(bf16)
+    Fm = f.to(bf16).reshape(1, B * N, N).expand(m["P_x"], B * N, N).contiguous()
+    pair_mm = cuda_ms(lambda: torch.matmul(Fm, Tm))
+    Tm = torch.randn(m["A_x"], N, 2 * K, generator=gen, device=dev).to(bf16)
+    Fm = f.to(bf16).reshape(1, B * N, N).expand(m["A_x"], B * N, N).contiguous()
+    group_mm = cuda_ms(lambda: torch.matmul(Fm, Tm))
+    del Tm, Fm
+    print(f"[time] yardsticks: bf16 torch.matmul of stage 1's shape, pair "
+          f"({m['P_x']} x [{B * N}x{N}] @ [{N}x{2 * K}]) {pair_mm:.4f} ms, per-angle "
+          f"({m['A_x']} x ...) {group_mm:.4f} ms ({card})")
+
+    def mean_cost(cost, counts, extra=0):
+        fl = sum(cost(B, N, c, K, S)[0] + extra * B * c * K * S for c in counts) / 2
+        return fl, sum(cost(B, N, c, K, S)[1] for c in counts) / 2
+
+    pairs, angles = (m["P_x"], m["P_y"]), (m["A_x"], m["A_y"])
+    # packed stage 3 multiplies 4K rows of [Wc; Wc; −Ws; −Ws]: 4·B·A·K·S more FLOPs
+    costs = {"project_pair_group_doubling": (mean_cost(pair_cost, pairs), pair_mm),
+             "project_pair_group_notrig": (mean_cost(pair_cost, pairs), pair_mm),
+             "project_group_packed": (mean_cost(group_cost, angles, extra=4), group_mm),
+             "backproject_group_packed": (mean_cost(group_cost, angles), group_mm)}
+    entries = []
+    for name, kern in kernels.items():
+        cost, mm = costs[name]
+        entries += time_kernels({name: kern}, errs, launches, cost,
+                                "pdunet_tpu_torch/ops/radon/csrc/radon_proto.cu",
+                                PROBE_REPLACES, mm, card)
+    for e in entries:
+        e["path"] = "probe script (scripts/trig_proto.py, scripts/pack_proto.py), B=32"
+    return entries
+
+
+def bench_phase(card):
+    """Phase 12: bench's headline path on the card at batch 32 (the full
+    batch-256 headline is a separate run); counts from 0 around it."""
+    import contextlib
+    import io
+
+    from pdunet_tpu_torch import bench
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+
+    ck.reset_launch_counts()
+    pk.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--batch", "32"])
+    torch.cuda.synchronize()
+    check(rc == 0, f"bench exited {rc}")
+    row = json.loads(out.getvalue().strip().splitlines()[0])
+    print(json.dumps(row))
+    n_fwd, n_adj = ck.project_pair_group.launches, ck.backproject_pair_group.launches
+    print(f"[chip_smoke] bench headline path (batch 32): pair launches {n_fwd} / {n_adj}, "
+          f"{row['value']} slices/s ({card})")
+    check(row["metric"] == "pdunet_256_sparse_ct_recon_throughput" and "vs_baseline" not in row,
+          f"bench headline row {row}")
+    check(row["value"] > 0 and row["device"] == torch.cuda.get_device_name(0),
+          f"bench headline value {row}")
+    check(n_fwd > 0 and n_adj > 0, "bench's headline did not run the pair kernels")
+    check(ck.project_group.launches == ck.backproject_group.launches == 0,
+          "a per-angle kernel ran on bench's headline path")
+    check(all(getattr(pk, n).launches == 0 for n in PROBE_REPLACES),
+          "a probe kernel ran on bench's headline path")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -579,13 +767,16 @@ def main():
     profile_recon(one_recon, card)
 
     radial_entries, radial_stats = radial_phases(dev, card, gen)
+    probe_entries = probe_phases(dev, card, gen)
+    bench_row = bench_phase(card)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    print(json.dumps({"kernels": entries + radial_entries,
+    print(json.dumps({"kernels": entries + radial_entries + probe_entries,
                       "recon_slices_per_s": B / recon_s,
                       "recon_ms_per_batch": recon_s * 1e3, "batch": B,
-                      "radial": radial_stats, "build_s": build_s, "card": card}))
+                      "radial": radial_stats, "bench_headline_b32": bench_row,
+                      "build_s": build_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))
     return 0

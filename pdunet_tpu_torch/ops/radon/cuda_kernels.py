@@ -70,7 +70,14 @@ def _project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     """Plain mirror-pair forward: f (B,N,N) → (B, 2P, S), rows interleaved
     [pair0-a, pair0-b, pair1-a, ...]. Stage 1 runs once per pair; member b
     reuses ĝ with Im scaled by ``sgn`` and applies its own shear phases."""
-    Tc, Ts, PcA, PsA, PcB, PsB = _pair_spectral_tensors(pos, sha, shb, spec, L, cdt)
+    return _pair_forward(f, *_pair_spectral_tensors(pos, sha, shb, spec, L, cdt), sgn,
+                         Wc, Ws, contract_x, cdt)
+
+
+def _pair_forward(f, Tc, Ts, PcA, PsA, PcB, PsB, sgn, Wc, Ws, contract_x: bool,
+                  cdt=torch.float32):
+    """Stages 1-3 of the mirror-pair forward from its six (P, N, K) trig
+    tensors, already rounded to ``cdt``."""
     f = _q(f, cdt)
     Wc, Ws = _q(Wc, cdt), _q(Ws, cdt)
     sub1 = "bji,pik->bpjk" if contract_x else "bji,pjk->bpik"

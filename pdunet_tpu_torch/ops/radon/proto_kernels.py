@@ -1,0 +1,355 @@
+"""The two kernel probes: wrappers and their plain PyTorch versions.
+
+They replace the Pallas kernels of the JAX package's probe scripts, which
+vary one thing of a shipped projector kernel each:
+
+* ``scripts/trig_proto.py::call_pair_fwd`` — the mirror-pair forward with
+  its six (N, K) trig tensors either built by block doubling from host
+  seeds (``project_pair_group_doubling``, body ``_fwd_pair_kernel_doubling``)
+  or replaced by mul-adds of the same shape (``project_pair_group_notrig``,
+  body ``_fwd_pair_kernel_notrig``: wrong numbers, right cost, the
+  free-trig probe);
+* ``scripts/pack_proto.py::call_fwd`` / ``call_adj`` — the per-angle forward
+  and adjoint with re/im packed into one (N, 2K) operand [T̂c | T̂s]
+  (``project_group_packed`` / ``backproject_group_packed``, bodies
+  ``_fwd_kernel_packed`` / ``_adj_kernel_packed``).
+
+The kernels are in ``csrc/radon_proto.cu``. For a CUDA tensor each wrapper
+launches its kernel (and raises if it cannot); for a CPU tensor it runs the
+plain version below, which computes what the Pallas body computes, with
+bf16 rounding where the body casts. ``doubling_trig_rows`` is the port of
+``pdunet_tpu/ops/radon/pallas_kernels.py::_doubling_trig_rows`` and
+``phase_seeds`` of ``scripts/trig_proto.py::_phase_seeds``.
+
+Trig of the packed pair (as in the Pallas bodies' ``_angle_tensors``):
+exact in float32, block doubling from in-kernel float32 seeds with bf16
+operands; ``doubling=`` overrides the rule (the probe times packed with
+exact trig against the shipped per-angle kernel, which uses exact trig).
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
+call does not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from pdunet_tpu_torch.ops.radon.cuda_kernels import (
+    _check,
+    _check_device,
+    _check_group_plan,
+    _compute_flag,
+    _kfreq,
+    _pair_forward,
+    _q,
+    _raise_on,
+    _spectral_tensors,
+    adjoint_splits,
+)
+
+__all__ = ["doubling_trig_rows", "phase_seeds", "project_pair_group_doubling",
+           "project_pair_group_notrig", "project_group_packed",
+           "backproject_group_packed", "reset_launch_counts"]
+
+
+def doubling_trig_rows(th0: torch.Tensor, dth: torch.Tensor, N: int):
+    """(cos, sin) of θ(j, k) = th0(k) + j·dth(k), j = 0..N−1, each
+    (..., N, K), from the seed rows th0, dth (..., K) by block doubling:
+    rows [n, 2n) are rows [0, n) rotated by the block rotor e^{i·n·dth},
+    which is then squared. The same operations in the same order as the
+    JAX function; its phase drift is ~N·eps_f32."""
+    c, s = torch.cos(th0)[..., None, :], torch.sin(th0)[..., None, :]
+    rc, rs = torch.cos(dth)[..., None, :], torch.sin(dth)[..., None, :]
+    n = 1
+    while n < N:
+        c2 = c * rc - s * rs
+        s2 = c * rs + s * rc
+        c = torch.cat([c, c2], dim=-2)
+        s = torch.cat([s, s2], dim=-2)
+        rc, rs = rc * rc - rs * rs, 2.0 * rc * rs
+        n *= 2
+    return c[..., :N, :], s[..., :N, :]
+
+
+def phase_seeds(pos, sha, shb, K: int, L: int):
+    """Host-side seeds of the doubling pair forward: (seeds0, steps), each a
+    (P, 3K) float32 array packing the [pos | sha | shb] families' phase at
+    row 0 and per-row increment, formed in float64 from the float32 plan
+    rows (tensors, (P, N)) and rounded once (the rows are exactly affine in j)."""
+    k = np.arange(K) * (2.0 * np.pi / L)
+
+    def fam(rows):
+        rows = rows.cpu().numpy()
+        return rows[:, 0:1] * k[None, :], (rows[:, 1:2] - rows[:, 0:1]) * k[None, :]
+
+    r0s, sts = zip(fam(pos), fam(sha), fam(shb))
+    return (np.concatenate(r0s, axis=1).astype(np.float32),
+            np.concatenate(sts, axis=1).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                 contract_x: bool, cdt=torch.float32):
+    """Plain doubling pair forward: the mirror-pair forward with all six
+    (P, N, K) trig tensors built by :func:`doubling_trig_rows` from the
+    (P, 3K) seeds of :func:`phase_seeds`, in float32 whatever ``cdt``."""
+    N = f.shape[-1]
+    K = spec.shape[0]
+    fams = [doubling_trig_rows(seeds0[:, i * K:(i + 1) * K],
+                               steps[:, i * K:(i + 1) * K], N) for i in range(3)]
+    (tc, ts), (ca, sa), (cb, sb) = fams
+    return _pair_forward(f, _q(spec * tc, cdt), _q(-spec * ts, cdt),
+                         _q(ca, cdt), _q(sa, cdt), _q(cb, cdt), _q(sb, cdt),
+                         sgn, Wc, Ws, contract_x, cdt)
+
+
+def _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                               contract_x: bool, cdt=torch.float32):
+    """Plain no-trig pair forward: the six trig tensors replaced by
+    spec ± pos·kf and sh·kf ± 1 (wrong numbers, the shipped kernel's cost
+    without its trig)."""
+    k = _kfreq(spec.shape[0], L, pos.dtype, pos.device)
+    tk = pos[:, :, None] * k
+    ak = sha[:, :, None] * k
+    bk = shb[:, :, None] * k
+    return _pair_forward(f, _q(spec + tk, cdt), _q(spec - tk, cdt),
+                         _q(ak + 1.0, cdt), _q(ak - 1.0, cdt),
+                         _q(bk + 1.0, cdt), _q(bk - 1.0, cdt),
+                         sgn, Wc, Ws, contract_x, cdt)
+
+
+def _use_doubling(cdt, doubling):
+    return cdt == torch.bfloat16 if doubling is None else bool(doubling)
+
+
+def _packed_angle_tensors(pos, shift, spec, L, cdt, doubling):
+    """Per-angle T̂ (cos, sin) and φ (cos, sin), each (A, N, K) rounded to
+    ``cdt``: exact trig, or block doubling from float32 seeds formed as the
+    Pallas ``_row_trig`` forms them (row[0]·kf and (row[1] − row[0])·kf)."""
+    N = pos.shape[1]
+    if not (doubling and N > 1):
+        return _spectral_tensors(pos, shift, spec, L, cdt)
+    k = _kfreq(spec.shape[0], L, pos.dtype, pos.device)
+
+    def trig(row):
+        return doubling_trig_rows(row[:, 0:1] * k, (row[:, 1:2] - row[:, 0:1]) * k, N)
+
+    ct, st = trig(pos)
+    pc, ps = trig(shift)
+    return _q(spec * ct, cdt), _q(-spec * st, cdt), _q(pc, cdt), _q(ps, cdt)
+
+
+def _project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                          cdt=torch.float32, doubling=None):
+    """Plain packed per-angle forward, f (B,N,N) → (B, A, S): stage 1 is one
+    product against [T̂c | T̂s] (A, N, 2K); stage 2 folds into the two
+    2K-wide rows [Σ gr·φc | −Σ gi·φs] and [Σ gr·φs | Σ gi·φc], each half
+    rounded to ``cdt`` on its own; stage 3 is one (4K)-deep product against
+    [Wc; Wc; −Ws; −Ws]. In float32 this is the shipped per-angle operator."""
+    Tc, Ts, Pc, Ps = _packed_angle_tensors(pos, shift, spec, L, cdt,
+                                           _use_doubling(cdt, doubling))
+    f = _q(f, cdt)
+    sub1 = "bji,aim->bajm" if contract_x else "bji,ajm->baim"
+    g = torch.einsum(sub1, f, torch.cat([Tc, Ts], dim=-1))        # (B, A, N, 2K)
+    row1 = _q(torch.einsum("barm,arm->bam", g, torch.cat([Pc, -Ps], dim=-1)), cdt)
+    row2 = _q(torch.einsum("barm,arm->bam", g, torch.cat([Ps, Pc], dim=-1)), cdt)
+    W4 = _q(torch.cat([Wc, Wc, -Ws, -Ws], dim=0), cdt)             # (4K, S)
+    return torch.einsum("baq,qs->bas", torch.cat([row1, row2], dim=-1), W4)
+
+
+def _backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                              cdt=torch.float32, doubling=None):
+    """Plain packed per-angle adjoint, p (B, A, S) → (B, N, N), the y group
+    transposed as :func:`cuda_kernels.backproject_group` returns it: Ŝ =
+    (p·Wcᵀ, −p·Wsᵀ) unrounded, h = [h_re | h_im] (B, A, N, 2K) rounded to
+    ``cdt``, then one 2K-deep contraction against [T̂c | T̂s]."""
+    Tc, Ts, Pc, Ps = _packed_angle_tensors(pos, shift, spec, L, cdt,
+                                           _use_doubling(cdt, doubling))
+    p = _q(p, cdt)
+    s_re = torch.einsum("bas,ks->bak", p, _q(Wc, cdt))[:, :, None, :]
+    s_im = -torch.einsum("bas,ks->bak", p, _q(Ws, cdt))[:, :, None, :]
+    h = _q(torch.cat([s_re * Pc + s_im * Ps, -s_re * Ps + s_im * Pc], dim=-1), cdt)
+    sub = "bajm,aim->bji" if contract_x else "baim,ajm->bji"
+    return torch.einsum(sub, h, torch.cat([Tc, Ts], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry point → argument types; all live in csrc/radon_proto.cu
+_ARGTYPES = {
+    "radon_proto_pairdoubling": [_P] * 9 + [_I] * 5 + [_I, _I, _P],
+    "radon_proto_pairnotrig": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
+    "radon_proto_packedproject": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    "radon_proto_packedbackproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(name: str):
+    """Build (at first use) ``csrc/radon_proto.cu`` and bind ``name``."""
+    from pdunet_tpu_torch.ops.radon._build import load_library
+
+    fn = getattr(load_library("radon_proto"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    return fn
+
+
+def _launch(name, *args):
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+        return _fn(name)(*ptrs, stream)
+
+
+def _check_pair(f, sgn, spec, Wc, Ws, P, K, S, dev):
+    B, N, _ = f.shape
+    _check("f", f, (B, N, N), dev)
+    _check("sgn", sgn, (P,), dev)
+    _check("spec", spec, (K,), dev)
+    _check("Wc", Wc, (K, S), dev)
+    _check("Ws", Ws, (K, S), dev)
+
+
+def project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                contract_x: bool, cdt=torch.float32):
+    """Doubling-trig mirror-pair forward for one angle group:
+    f (B,N,N) → (B, 2P, S) float32, rows interleaved [pair0-a, pair0-b, ...];
+    ``seeds0``/``steps`` are the (P, 3K) arrays of :func:`phase_seeds`.
+
+    CPU tensors run :func:`_project_pair_group_doubling`; CUDA tensors launch
+    the kernel of ``csrc/radon_proto.cu``."""
+    if f.device.type == "cpu":
+        return _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                            contract_x, cdt)
+    _check_device(f)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    B, N, _ = f.shape
+    P = sgn.shape[0]
+    dev = f.device
+    _check_pair(f, sgn, spec, Wc, Ws, P, K, S, dev)
+    _check("seeds0", seeds0, (P, 3 * K), dev)
+    _check("steps", steps, (P, 3 * K), dev)
+    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
+    rc = _launch("radon_proto_pairdoubling", f, seeds0, steps, sgn, spec, Wc, Ws,
+                 shat, out, B, N, P, K, S, int(contract_x), bf16)
+    project_pair_group_doubling.launches += 1
+    _raise_on(rc, "project_pair_group_doubling")
+    return out
+
+
+def project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                              contract_x: bool, cdt=torch.float32):
+    """No-trig mirror-pair forward (the free-trig cost probe; its numbers are
+    not a projection): f (B,N,N) → (B, 2P, S) float32.
+
+    CPU tensors run :func:`_project_pair_group_notrig`; CUDA tensors launch
+    the kernel of ``csrc/radon_proto.cu``."""
+    if f.device.type == "cpu":
+        return _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                                          contract_x, cdt)
+    _check_device(f)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    if K != L // 2 + 1:
+        raise ValueError(f"spec has K={K} frequencies, expected L//2+1={L // 2 + 1}")
+    B, N, _ = f.shape
+    P = pos.shape[0]
+    dev = f.device
+    _check_pair(f, sgn, spec, Wc, Ws, P, K, S, dev)
+    for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
+        _check(name, t, (P, N), dev)
+    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
+    rc = _launch("radon_proto_pairnotrig", f, pos, sha, shb, sgn, spec, Wc, Ws,
+                 shat, out, B, N, P, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
+    project_pair_group_notrig.launches += 1
+    _raise_on(rc, "project_pair_group_notrig")
+    return out
+
+
+def project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                         cdt=torch.float32, doubling=None):
+    """Packed re/im per-angle forward for one angle group:
+    f (B,N,N) → (B, A_g, S) float32. ``doubling`` picks the trig (default:
+    block doubling with bf16 operands, exact in float32).
+
+    CPU tensors run :func:`_project_group_packed`; CUDA tensors launch the
+    kernel of ``csrc/radon_proto.cu``."""
+    if f.device.type == "cpu":
+        return _project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x,
+                                     cdt, doubling)
+    _check_device(f)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    B, N, _ = f.shape
+    A = pos.shape[0]
+    dev = f.device
+    _check("f", f, (B, N, N), dev)
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
+    rows = torch.empty((B, A, 4 * K), dtype=torch.float32, device=dev)
+    rc = _launch("radon_proto_packedproject", f, pos, shift, spec, Wc, Ws, rows, out,
+                 B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16,
+                 int(_use_doubling(cdt, doubling)))
+    project_group_packed.launches += 1
+    _raise_on(rc, "project_group_packed")
+    return out
+
+
+def backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
+                             cdt=torch.float32, doubling=None):
+    """Packed re/im per-angle adjoint for one angle group:
+    p (B, A_g, S) → (B, N, N) float32, the y group already transposed.
+
+    CPU tensors run :func:`_backproject_group_packed`; CUDA tensors launch
+    the kernel of ``csrc/radon_proto.cu``."""
+    if p.device.type == "cpu":
+        return _backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x,
+                                         cdt, doubling)
+    _check_device(p)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    B, A, _ = p.shape
+    dev = p.device
+    _check("p", p, (B, A, S), dev)
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    G = adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
+    part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
+            if G > 1 else None)
+    rc = _launch("radon_proto_packedbackproject", p, pos, shift, spec, Wc, Ws, shat,
+                 part, out, B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16,
+                 int(_use_doubling(cdt, doubling)))
+    backproject_group_packed.launches += 1
+    _raise_on(rc, "backproject_group_packed")
+    return out
+
+
+project_pair_group_doubling.launches = 0
+project_pair_group_notrig.launches = 0
+project_group_packed.launches = 0
+backproject_group_packed.launches = 0
+
+
+def reset_launch_counts():
+    for fn in (project_pair_group_doubling, project_pair_group_notrig,
+               project_group_packed, backproject_group_packed):
+        fn.launches = 0

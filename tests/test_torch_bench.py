@@ -1,0 +1,106 @@
+"""The port's benchmark entry point (pdunet_tpu_torch/bench.py) on the CPU at
+a tiny size. The numbers mean nothing here; the plumbing is under test:
+the timer, the row schemas, the headline line, the FLOP model against the
+JAX harness's formula, and the refusals of what is not ported yet."""
+
+import json
+import math
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pdunet_tpu.geometry import GOLDEN_ANGLE
+from pdunet_tpu.geometry import ParallelGeometry as JaxGeometry
+from pdunet_tpu.geometry import build_parallel_plan as jax_plan
+from pdunet_tpu_torch import bench
+from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
+
+torch.set_num_threads(1)
+
+_TINY = ["--device", "cpu", "--batch", "2", "--image-size", "32", "--n-iters", "2"]
+
+
+def test_timeit_measures_and_threads_aux():
+    dt = bench.timeit(lambda x, a: x * a, torch.ones(4, 4), iters=2,
+                      aux=(torch.full((4, 4), 2.0),))
+    assert dt > 0
+    # a function that needs its aux argument fails loudly without it
+    with pytest.raises(TypeError):
+        bench.timeit(lambda x, a: x * a, torch.ones(4, 4), iters=2)
+
+
+@pytest.mark.parametrize("preset", ["pdunet_parallel", "pdunet_radial"])
+def test_preset_recon_rows(preset):
+    row = bench.bench_preset_recon(preset, 2, image_size=32, n_angles=96, device="cpu")
+    assert row["preset"] == preset and row["batch"] == 2 and row["device"] == "cpu"
+    assert row["recon_slices_per_sec"] > 0 and row["sec_per_slice"] > 0
+    assert row["image_size"] == 32 and row["n_angles"] == 96
+    assert row["mpixels_per_sec"] >= 0
+    # no quality keys: the JAX harness's come from TPU-trained checkpoints
+    assert not {"test_psnr", "test_ssim", "quality_artifact"} & set(row)
+
+
+def test_headline_line_on_cpu(capsys):
+    assert bench.main(_TINY) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[0])
+    assert line["metric"] == "pdunet_256_sparse_ct_recon_throughput"
+    assert line["unit"] == "slices/sec/chip" and line["value"] > 0
+    assert "vs_baseline" not in line and line["device"] == "cpu"
+
+
+def test_all_rows_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert bench.main(_TINY + ["--all"]) == 0
+    details = json.loads((tmp_path / "bench_details.json").read_text())
+    for key in ("radon_fwd_slices_per_sec", "radon_adj_slices_per_sec", "fbp_slices_per_sec"):
+        assert details[key] > 0
+    roof = details["roofline"]
+    assert roof["conv_flops_per_batch"] > 0 and roof["projector_tflops_per_slice_analytic"] > 0
+    assert not any(k.startswith("mxu") for k in roof)
+    # a CPU run states no utilisation of the card's peak
+    assert roof["conv_util_vs_bf16_peak"] is None and roof["device_kind"] == "cpu"
+
+
+def test_cli_defaults_are_the_jax_harness_defaults_on_the_card():
+    args = bench.parse_args([])
+    assert (args.batch, args.n_iters, args.image_size, args.device) == (256, 4, 256, "cuda")
+
+
+def _jax_formula(plan):
+    """bench.py's analytic per-apply projector FLOPs on a JAX plan."""
+    m = plan.meta
+    A_tot, N_, K_ = (m["A_x"] + m["A_y"]), m["N"], plan.spec.shape[0]
+    S_ = plan.Wc.shape[1]
+    if m.get("use_pairs"):
+        units1 = m["P_x"] + m["P_y"]
+        rows23 = 2 * units1
+    else:
+        units1, rows23 = A_tot, A_tot
+    return 2 * (2 * units1 * N_ * N_ * K_ + 4 * rows23 * N_ * K_ + 2 * rows23 * K_ * S_)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(image_size=256, n_angles=360, subsample=4),
+    dict(image_size=32, n_angles=21, subsample=1),
+    dict(image_size=32, angles=tuple((k * GOLDEN_ANGLE) % math.pi for k in range(16)),
+         subsample=1),
+], ids=["flagship", "unpaired-leftover", "golden"])
+def test_projector_flops_match_jax_formula(kw):
+    kw = dict(kw)
+    sub = kw.pop("subsample")
+    jp = jax_plan(JaxGeometry(**kw).subsample(sub), dtype=jnp.float32)
+    tp = build_parallel_plan(ParallelGeometry(**kw).subsample(sub), device="cpu")
+    got = bench.projector_flops_per_apply(tp.meta, tp.spec.shape[0], tp.Wc.shape[1])
+    assert got == _jax_formula(jp) > 0
+
+
+def test_unported_presets_and_flags_raise():
+    with pytest.raises(NotImplementedError, match="slice B"):
+        bench.bench_preset_recon("fbp_unet_parallel", 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice C"):
+        bench.main(["--preset-recon", "pdunet_fan", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice A2"):
+        bench.main(_TINY + ["--train-scan"])
+    with pytest.raises(NotImplementedError, match="shuffle"):
+        bench.main(_TINY + ["--unet-scan"])
