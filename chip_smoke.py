@@ -4,20 +4,33 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
-  1. build every CUDA source of the port with nvcc (sm_90a), all at once;
+  1. build every CUDA source of the port with nvcc (sm_90a), all at once, and
+     count the HGMMA (wgmma) instructions of each tensor-core kernel in the
+     built library (cuobjdump -sass): the stage-1 / 1ᵀ kernels must have some;
   2. at the serving path's shapes (pdunet_parallel: B=4, 256², 90 of 360
      angles, P=23 pairs per group, K=180), hold each kernel against its plain
      PyTorch version on the card, float32 and bf16 operands, both groups:
-     relative error ≤ 1e-5 (f32) / ≤ 5e-3 (bf16), TF32 off for the reference;
-  3. the adjoint dot-product test of the routed kernel pair in float32;
+     relative error ≤ 1e-5 (f32, CUDA-core route) / ≤ 5e-3 (bf16, the
+     tensor-core route from the plan's trig tables), TF32 off for the
+     reference; the card's tables against the plain builder; the bf16 route
+     again at B = 1 and 32 and at a size whose rows do not fill a tile (96²,
+     24 of 96 angles), and the CUDA-core kernels in bf16 (the A/B baseline);
+  3. the adjoint dot-product test of the routed kernel pair in float32
+     (≤ 1e-5), and of the bf16 tensor-core pair per group: its mismatch at
+     most 2× the plain bf16 pair's plus 1e-4;
   4. the serving path at full width (build_task → make_batch →
      batch_from_images → recon_fn → PSNR/SSIM) with random weights from a
-     seed; launch counters must show every A and A† went through the kernels;
-     the card's f0 must match the plain path on the CPU, and a cut-down
-     float32 task must reconstruct the same on the card and on the CPU;
-  5. CUDA-event timings of each kernel beside its bound and its plain
-     version, a bf16 torch.matmul of stage 1's shape as a labelled yardstick,
-     and reconstruction slices/s at batch 4;
+     seed; launch counters, zeroed before build_task, must show the tables
+     built once per group, every bf16 A and A† (the power iteration in
+     build_task, 2·n_iters per op per batch in recon_fn) on the tensor-core
+     route and synthesis and FBP on the float32 route; the card's f0 must
+     match the plain path on the CPU, and a cut-down float32 task must
+     reconstruct the same on the card and on the CPU;
+  5. timings of each kernel beside its bound and its plain version, a bf16
+     torch.matmul of stage 1's shape as a labelled yardstick, the pair
+     kernels' tensor-core and CUDA-core bf16 routes in turns at B = 4 and
+     B = 256, warm and with the L2 cache flushed before each call, the table
+     build time, and reconstruction slices/s and profile at batch 4;
   6. at the radial path's shapes (pdunet_radial: 256² complex images, 128 of
      512 golden-angle spokes of 512 samples, so the per-angle kernels see
      B' = 2·4 = 8 real images, A_x = A_y = 64 spokes, K = 256, S = 1024),
@@ -48,14 +61,16 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only.
 
-Output: a ``{"kernels": [...]}`` JSON line (eight kernels: the six TPU
-kernel rows, row 5 as its doubling and no-trig variants), then the
-card's name and power limit, then the last line
+Output: a ``{"kernels": [...]}`` JSON line (nine kernels: the six TPU
+kernel rows, row 5 as its doubling and no-trig variants, and the pair
+kernels' trig-table builder), then the card's name and power limit, then
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import pathlib
 import subprocess
@@ -106,6 +121,56 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=10, flush=None):
+    """Milliseconds of the device work of one ``fn()``: a sleep kernel holds
+    the stream while the host enqueues the call between two CUDA events, so
+    the host's launch overhead is left out; ``flush``, a buffer larger than
+    the 50 MB L2 cache, is written before each call so that the call finds
+    the cache cold."""
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / iters
+
+
+def hgmma_counts(lib, names):
+    """HGMMA (wgmma) instructions in each named kernel of a built library,
+    from ``cuobjdump -sass`` (the toolkit's, else the one Triton bundles)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        import triton
+
+        tool = str(pathlib.Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            per_fn[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            per_fn[fn] += 1
+    counts = {}
+    for name in names:
+        tag = f"{len(name)}{name}E"  # the mangled name's length prefix
+        found = [n for f, n in per_fn.items() if tag in f]
+        check(len(found) == 1, f"kernel {name} not found in {lib}")
+        counts[name] = found[0]
+    return counts
+
+
 def pair_cost(B, N, P, K, S):
     """(flops, bytes) of one pair-group call, forward or adjoint (the same
     products transposed). Stage 1: B·P·N²·K complex-by-real MACs; stage 2:
@@ -135,11 +200,11 @@ def bound_ms(flops, nbytes, tname):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_kernels(kernels, errs):
+def check_kernels(kernels, errs, dtypes=(torch.float32, torch.bfloat16)):
     """Each kernel against its plain version on the same inputs, f32 and
     bf16 operands, both angle groups; records the worst errors in ``errs``."""
     for name, (call, kern, plain) in kernels.items():
-        for cdt in (torch.float32, torch.bfloat16):
+        for cdt in dtypes:
             tname = str(cdt).split(".")[1]
             for g in "xy":
                 out_k = call(g, cdt, kern)
@@ -226,7 +291,7 @@ def profile_recon(one_recon, card, reps=3):
     groups = {}
     for e in kern:
         n = e.key
-        g = ("mirror-pair projector kernels (radon_pair.cu)" if "pair_" in n
+        g = ("mirror-pair projector kernels (radon_pair.cu, radon_pair_tc.cu)" if "pair_" in n
              else "per-angle projector kernels (radon_group.cu)" if "group_" in n
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
              else "other")
@@ -235,9 +300,121 @@ def profile_recon(one_recon, card, reps=3):
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f} ({card})")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {g}: {ms / reps:.4f} ms per recon ({ms / busy_ms:.3f} of busy)")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f} ms/recon "
-              f"x{e.count // reps:<4d} {e.key[:110]}")
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+    # the top kernels, and every projector kernel
+    for i, e in enumerate(ranked):
+        if i < 12 or "pair_" in e.key or "group_" in e.key:
+            print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f} ms/recon "
+                  f"x{e.count // reps:<4d} {e.key[:110]}")
+
+
+#: the kernels of csrc/radon_pair_tc.cu
+TC_KERNELS = ("pair_tables", "pair_tc_prep", "pair_tc_fwd", "pair_tc_fwd_stage3",
+              "pair_tc_adj_stage3t", "pair_tc_adj", "pair_tc_reduce")
+
+
+def pair_rows(plan, g):
+    return [getattr(plan, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn", "msk")]
+
+
+def pair_calls(ck, plan, tabs, f, p):
+    """(fwd, adj) for check_kernels: fwd(g, cdt, impl) runs a pair-forward
+    implementation on the image batch f, adj(g, cdt, impl) an adjoint on
+    p[g]; the wrappers get the group's trig tables, the adjoint kernels the
+    image size (the plain versions read it off pos)."""
+    L, N = plan.meta["S_ext"], plan.meta["N"]
+
+    def fwd(g, cdt, impl):
+        a = (f, *pair_rows(plan, g)[:4], plan.spec, plan.Wc, plan.Ws, L, g == "x", cdt)
+        return impl(*a, tables=tabs[g]) if impl is ck.project_pair_group else impl(*a)
+
+    def adj(g, cdt, impl):
+        a = (p[g], *pair_rows(plan, g), plan.spec, plan.Wc, plan.Ws, L, g == "x")
+        if impl is ck.backproject_pair_group:
+            return impl(*a, N, cdt, tables=tabs[g])
+        return impl(*a, N, cdt) if impl is ck._backproject_pair_cc else impl(*a, cdt)
+
+    return fwd, adj
+
+
+def pair_counts(ck):
+    """(launches, tensor-core launches) of the pair wrappers and the table builder."""
+    return {"project_pair_group": (ck.project_pair_group.launches,
+                                   ck.project_pair_group.launches_tc),
+            "backproject_pair_group": (ck.backproject_pair_group.launches,
+                                       ck.backproject_pair_group.launches_tc),
+            "build_pair_tables": (ck.build_pair_tables.launches, 0)}
+
+
+def pair_ab(ck, plan, tabs, gen, card, batches):
+    """Device times per group call (mean of x and y) of the pair kernels'
+    bf16 routes, CUDA-core and tensor-core in turns (cc, tc, tc, cc), warm
+    and with the L2 cache flushed before each call, at each batch size,
+    beside the bound and a bf16 torch.matmul of stage 1's shape."""
+    m = plan.meta
+    N, S, K, P = m["N"], m["S"], m["K"], m["P_x"]
+    dev = plan.spec.device
+    bf16 = torch.bfloat16
+    flush = torch.empty(64 * 2 ** 20, device=dev)  # 256 MB
+    out = {"project_pair_group": {}, "backproject_pair_group": {}}
+    for B in batches:
+        f = torch.randn(B, N, N, generator=gen, device=dev)
+        p = {g: torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
+        fwd, adj = pair_calls(ck, plan, tabs, f, p)
+        fl, nb = pair_cost(B, N, P, K, S)
+        bound, by = bound_ms(fl, nb, "bfloat16")
+        iters = 10 if B <= 32 else 4
+        for op, call, tc, cc in (
+                ("project_pair_group", fwd, ck.project_pair_group, ck._project_pair_cc),
+                ("backproject_pair_group", adj, ck.backproject_pair_group,
+                 ck._backproject_pair_cc)):
+            turns = {}
+            for mode, buf in (("", None), ("_cold", flush)):
+                for impl, key in ((cc, "cc"), (tc, "tc"), (tc, "tc"), (cc, "cc")):
+                    ms = sum(device_ms(lambda g=g, impl=impl: call(g, bf16, impl), iters, buf)
+                             for g in "xy") / 2
+                    turns.setdefault(f"ms_{key}{mode}_b{B}", []).append(ms)
+            row = {k: sum(v) / len(v) for k, v in turns.items()}
+            row[f"bound_ms_b{B}"] = bound
+            out[op].update(row)
+            tc_ms = row[f"ms_tc_b{B}"]
+            print(f"[time] {op} bf16 at B={B}: tensor cores {tc_ms:.4f} ms warm, "
+                  f"{row[f'ms_tc_cold_b{B}']:.4f} ms cold L2; CUDA cores "
+                  f"{row[f'ms_cc_b{B}']:.4f} / {row[f'ms_cc_cold_b{B}']:.4f} ms; turns "
+                  f"{ {k: [round(v, 4) for v in vs] for k, vs in turns.items()} }; bound "
+                  f"{bound:.4f} ms ({by}), {fl / (tc_ms * 1e-3) / 1e12:.1f} TFLOP/s ({card})")
+        Tm = torch.randn(P, N, 2 * K, generator=gen, device=dev).to(bf16)
+        Fm = f.to(bf16).reshape(1, B * N, N).expand(P, B * N, N).contiguous()
+        mm = device_ms(lambda: torch.matmul(Fm, Tm), iters)
+        del Fm, Tm
+        print(f"[time] yardstick at B={B}: bf16 torch.matmul of stage 1's shape "
+              f"({P} x [{B * N}x{N}] @ [{N}x{2 * K}]) {mm:.4f} ms ({card})")
+        for op in out:
+            out[op][f"stage1_matmul_bf16_ms_b{B}"] = mm
+    return out
+
+
+def table_entry(ck, plan, tab_err, launches, card):
+    """The trig-table builder's JSON entry: its device time for one group
+    beside the plain builder's and its bound (bytes: the plan rows read
+    once, the table written once)."""
+    m = plan.meta
+    rows = pair_rows(plan, "x")[:3]
+    L = m["S_ext"]
+    ms = device_ms(lambda: ck.build_pair_tables(*rows, plan.spec, L))
+    plain_ms = cuda_ms(lambda: ck._pair_tables(*rows, plan.spec, L), iters=5)
+    tab = ck.build_pair_tables(*rows, plan.spec, L)
+    nbytes = tab.numel() * 2 + 4 * (3 * m["P_x"] * m["N"] + m["K"])
+    bound, by = bound_ms(0, nbytes, "bfloat16")
+    print(f"[time] build_pair_tables (one group, {tuple(tab.shape)} bf16, "
+          f"{nbytes / 1e6:.2f} MB): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}) ({card})")
+    return {"name": "build_pair_tables", "route": "cuda",
+            "source": "pdunet_tpu_torch/ops/radon/csrc/radon_pair_tc.cu",
+            "replaces": "pdunet_tpu/ops/radon/pallas_kernels.py:167",
+            "launches": launches, "max_abs_err": tab_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "path": "once per plan and angle group (pdunet_parallel: in build_task)"}
 
 
 def radial_phases(dev, card, gen):
@@ -504,13 +681,13 @@ def probe_phases(dev, card, gen):
         print(f"[check] packed vs shipped per-angle kernels, f32 group {g}: fwd rel {r:.3e}, "
               f"adj rel {ra:.3e} (tol 1e-5)")
         check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the shipped ones in f32")
-        # doubling against the exact-trig pair kernel: the probe's 2e-2
+        # doubling against the exact-trig CUDA-core pair kernel: the probe's 2e-2
         for cdt in (f32, bf16):
             r = rel(dbl(g, cdt, pk.project_pair_group_doubling),
-                    ck.project_pair_group(f, *pair(g), plan.spec, plan.Wc, plan.Ws, L,
-                                          g == "x", cdt))
-            print(f"[check] doubling vs exact-trig pair kernel, {cdt} group {g}: rel {r:.3e} "
-                  f"(tol 2e-2)")
+                    ck._project_pair_cc(f, *pair(g), plan.spec, plan.Wc, plan.Ws, L,
+                                        g == "x", cdt))
+            print(f"[check] doubling vs exact-trig CUDA-core pair kernel, {cdt} group {g}: "
+                  f"rel {r:.3e} (tol 2e-2)")
             check(r < 2e-2, "doubling drifts from the exact-trig pair kernel")
         # the packed pair is an exact transpose in float32
         x = torch.randn(B, N, N, generator=gen, device=dev)
@@ -618,9 +795,14 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[chip_smoke] built {sorted(logs)} in {build_s:.2f} s")
+    hgmma = hgmma_counts(_build.build("radon_pair_tc"), TC_KERNELS)
+    print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu: {hgmma}")
+    for name in ("pair_tc_fwd", "pair_tc_adj"):
+        check(hgmma[name] > 0, f"{name} (stage 1 / 1ᵀ) has no HGMMA instruction")
 
     from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.data.synth import random_phantom_batch
+    from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
     from pdunet_tpu_torch.ops.metrics import psnr, ssim
     from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
     from pdunet_tpu_torch.ops.radon.parallel import (
@@ -628,7 +810,7 @@ def main():
         parallel_backproject,
         parallel_project,
     )
-    from pdunet_tpu_torch.training.tasks import build_geometries, build_task
+    from pdunet_tpu_torch.training.tasks import build_geometries, build_task, estimate_opnorm
 
     # -- 2. kernels against their plain versions at the serving shapes ------
     config = get_preset("pdunet_parallel")
@@ -645,18 +827,21 @@ def main():
     f = torch.randn(B, N, N, generator=gen, device=dev)
     p = {g: torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
 
-    def args(g):
-        return [getattr(plan, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn", "msk")]
+    # the card's trig tables (the tensor-core route's) against the plain builder
+    tabs, tab_err = {}, 0.0
+    for g in "xy":
+        r = pair_rows(plan, g)
+        tabs[g] = ck.build_pair_tables(*r[:3], plan.spec, L)
+        ref = ck._pair_tables(*r[:3], plan.spec, L)
+        torch.cuda.synchronize()
+        rt = rel(tabs[g].float(), ref.float())
+        mae = float((tabs[g].float() - ref.float()).abs().max())
+        tab_err = max(tab_err, mae)
+        print(f"[check] trig tables group {g}: {tuple(tabs[g].shape)} bf16 vs plain builder: "
+              f"rel {rt:.3e} max_abs {mae:.3e} (tol 5e-3)")
+        check(rt <= TOL["bfloat16"], f"trig tables group {g}: rel {rt}")
 
-    def fwd(g, cdt, impl):
-        a = args(g)
-        return impl(f, *a[:4], plan.spec, plan.Wc, plan.Ws, L, g == "x", cdt)
-
-    def adj(g, cdt, impl):
-        a = (p[g], *args(g), plan.spec, plan.Wc, plan.Ws, L, g == "x")
-        # the wrapper takes the image size N; the plain version reads it off pos
-        return impl(*a, N, cdt) if impl is ck.backproject_pair_group else impl(*a, cdt)
-
+    fwd, adj = pair_calls(ck, plan, tabs, f, p)
     kernels = {
         "project_pair_group": (fwd, ck.project_pair_group, ck._project_pair_group),
         "backproject_pair_group": (adj, ck.backproject_pair_group,
@@ -664,8 +849,44 @@ def main():
     }
     errs = {}
     check_kernels(kernels, errs)
+    # the CUDA-core kernels with bf16 operands: the A/B baseline of phase 5
+    check_kernels({"project_pair_group CUDA-core": (fwd, ck._project_pair_cc,
+                                                    ck._project_pair_group),
+                   "backproject_pair_group CUDA-core": (adj, ck._backproject_pair_cc,
+                                                        ck._backproject_pair_group)},
+                  errs, dtypes=(torch.bfloat16,))
+    # the tensor-core kernels against the plain versions of their own tiling,
+    # which read the same (card-built) tables
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for g in "xy":
+        r = pair_rows(plan, g)
+        bf16 = torch.bfloat16
+        rf = rel(fwd(g, bf16, ck.project_pair_group),
+                 ck._pair_forward_tc(f, tabs[g], r[3], plan.Wc, plan.Ws, g == "x"))
+        G = ck.pair_adjoint_splits(B, N, m[f"P_{g}"], n_sms)
+        ra = rel(adj(g, bf16, ck.backproject_pair_group),
+                 ck._pair_adjoint_tc(p[g], tabs[g], r[3], r[4], plan.Wc, plan.Ws, g == "x",
+                                     N, G))
+        print(f"[check] tensor-core pair vs its tiled plain version, group {g}: fwd rel "
+              f"{rf:.3e}, adj rel {ra:.3e} (G = {G} slices; tol 5e-3)")
+        check(rf <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "tiled plain version")
+    # other batch sizes, and a size whose rows do not fill a 128-row tile
+    ragged = build_parallel_plan(ParallelGeometry(image_size=96, n_angles=96).subsample(4),
+                                 device=dev)
+    for label, pl, B_ in (("B=1", plan, 1), ("B=32", plan, 32), ("96² 24 angles", ragged, 4)):
+        N_, S_, L_ = pl.meta["N"], pl.meta["S"], pl.meta["S_ext"]
+        tabs_ = tabs if pl is plan else {
+            g: ck.build_pair_tables(*pair_rows(pl, g)[:3], pl.spec, L_) for g in "xy"}
+        f_ = torch.randn(B_, N_, N_, generator=gen, device=dev)
+        p_ = {g: torch.randn(B_, 2 * pl.meta[f"P_{g}"], S_, generator=gen, device=dev)
+              for g in "xy"}
+        fwd_, adj_ = pair_calls(ck, pl, tabs_, f_, p_)
+        check_kernels({f"project_pair_group {label}": (fwd_, ck.project_pair_group,
+                                                       ck._project_pair_group),
+                       f"backproject_pair_group {label}": (adj_, ck.backproject_pair_group,
+                                                           ck._backproject_pair_group)}, {})
 
-    # -- 3. adjoint dot test of the routed kernel pair ------------------------
+    # -- 3. adjoint dot tests ------------------------------------------------------
     x = torch.randn(B, N, N, generator=gen, device=dev)
     y = torch.randn(B, len(sparse.angles), S, generator=gen, device=dev)
     lhs = torch.vdot(parallel_project(plan, x).double().flatten(), y.double().flatten())
@@ -673,18 +894,42 @@ def main():
     adj_rel = float(abs(lhs - rhs) / abs(lhs))
     print(f"[check] adjoint <Ax,y> vs <x,A^T y>: rel {adj_rel:.3e} (tol 1e-5)")
     check(adj_rel < 1e-5, f"adjoint test failed: {adj_rel}")
+    # bf16: A and A† round different operands, so the pair is not an exact
+    # transpose; the kernel pair must do no worse than the plain pair
+    dot_bf16 = {}
+    for g in "xy":
+        yg = torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev)
+        yg[:, 1::2] *= pair_rows(plan, g)[4][None, :, None]  # unpaired member-b rows
+        fwd_g, adj_g = pair_calls(ck, plan, tabs, x, {g: yg})
+
+        def mismatch(impl_f, impl_a):
+            a = fwd_g(g, torch.bfloat16, impl_f)
+            b = adj_g(g, torch.bfloat16, impl_a)
+            lhs = torch.vdot(a.double().flatten(), yg.double().flatten())
+            rhs = torch.vdot(x.double().flatten(), b.double().flatten())
+            return float(abs(lhs - rhs) / abs(lhs))
+
+        mk = mismatch(ck.project_pair_group, ck.backproject_pair_group)
+        mp = mismatch(ck._project_pair_group, ck._backproject_pair_group)
+        dot_bf16[g] = (mk, mp)
+        print(f"[check] bf16 adjoint dot test, group {g}: tensor-core pair {mk:.3e}, plain "
+              f"pair {mp:.3e} (tol 2 x plain + 1e-4)")
+        check(mk <= 2 * mp + 1e-4, f"bf16 dot test group {g}: {mk} vs plain {mp}")
 
     # -- 4. the serving path at full width ------------------------------------
+    # counts from 0 before build_task: its power iteration runs the bf16
+    # operators and builds the tables
+    ck.reset_launch_counts()
     t0 = time.perf_counter()
     task = build_task(config, device=dev)
     torch.cuda.synchronize()
     print(f"[chip_smoke] build_task({config.name}) on {dev}: "
           f"{time.perf_counter() - t0:.2f} s, sigma {task.sigma:.6g}")
+    at_build = pair_counts(ck)
     task.init_params(torch.Generator().manual_seed(0))
     task.model.eval()
     n_batches = 3
     data_gen = torch.Generator(device=dev).manual_seed(1234)
-    ck.reset_launch_counts()
     results = []
     with torch.inference_mode():
         for _ in range(n_batches):
@@ -694,17 +939,32 @@ def main():
             results.append((batch, recon, psnr(recon, batch["image"]),
                             ssim(recon, batch["image"])))
     torch.cuda.synchronize()
-    launches = {"project_pair_group": ck.project_pair_group.launches,
-                "backproject_pair_group": ck.backproject_pair_group.launches}
+    counts = pair_counts(ck)
+    launches = {name: counts[name][0] for name in ("project_pair_group",
+                                                   "backproject_pair_group",
+                                                   "build_pair_tables")}
     check(ck.project_group.launches == ck.backproject_group.launches == 0,
           "a per-angle kernel ran on the pdunet_parallel path")
-    # per batch: make_batch and batch_from_images each run A + FBP (one A†),
-    # recon_fn runs n_iters A and n_iters A†; every A / A† is 2 groups
+    # build_task: the power iteration's (n + 1) bf16 A†A, 2 groups each, and
+    # one table build per group. Per batch: make_batch and batch_from_images
+    # each run A + FBP (one A†) in f32, recon_fn n_iters bf16 A and A†.
     n_iters = config.model.n_iters
-    expected = n_batches * 2 * (2 + n_iters)
-    print(f"[chip_smoke] main-path launches: {launches} (expected {expected} each)")
-    for name, n in launches.items():
-        check(n == expected, f"{name}: {n} launches on the main path, expected {expected}")
+    n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
+    print(f"[chip_smoke] main-path launches (total, tensor-core): after build_task "
+          f"{at_build}, after {n_batches} batches {counts}")
+    check(at_build["build_pair_tables"] == (2, 0) and counts["build_pair_tables"] == (2, 0),
+          "the trig tables were not built exactly once per group")
+    for name in ("project_pair_group", "backproject_pair_group"):
+        tc_build = 2 * (n_power + 1)
+        check(at_build[name] == (tc_build, tc_build),
+              f"{name}: {at_build[name]} in build_task, expected {tc_build} on the tensor cores")
+        n, n_tc = (c - b for c, b in zip(counts[name], at_build[name]))
+        check(n_tc == n_batches * 2 * n_iters,
+              f"{name}: {n_tc} tensor-core launches in {n_batches} batches, expected "
+              f"{n_batches * 2 * n_iters} (recon_fn)")
+        check(n - n_tc == n_batches * 2 * 2,
+              f"{name}: {n - n_tc} float32 launches in {n_batches} batches, expected "
+              f"{n_batches * 2 * 2} (synthesis, FBP)")
     for i, (batch, recon, ps, ss) in enumerate(results):
         check(recon.shape == (B, N, N), f"recon shape {tuple(recon.shape)}")
         check(bool(torch.isfinite(recon).all()), "non-finite reconstruction")
@@ -754,8 +1014,22 @@ def main():
         "backproject_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:380",
     }
     entries = time_kernels(kernels, errs, launches, (fl, nb),
-                           "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu", replaces,
+                           "pdunet_tpu_torch/ops/radon/csrc/radon_pair_tc.cu", replaces,
                            mm_ms, card)
+    ab = pair_ab(ck, plan, tabs, gen, card, (B, 256))
+    for e in entries:
+        op = e["name"]
+        # "ms" is the device time of the route the main path takes; the
+        # back-to-back host-clocked time stays as ms_eager
+        e["ms_eager"] = e["ms"]
+        e.update(ab[op])
+        e["ms"] = ab[op]["ms_tc_b4"]
+        e["launches_tc"] = counts[op][1]
+        e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu"
+        e["hgmma"] = hgmma["pair_tc_fwd" if op == "project_pair_group" else "pair_tc_adj"]
+        e["operand_dtype"] = ("bfloat16 on tensor cores (f32 keys *_f32: CUDA-core "
+                              "route; *_cc_*: CUDA-core bf16 A/B baseline)")
+    entries.append(table_entry(ck, plan, tab_err, launches["build_pair_tables"], card))
 
     def one_recon():
         with torch.inference_mode():
@@ -776,6 +1050,7 @@ def main():
                       "recon_slices_per_s": B / recon_s,
                       "recon_ms_per_batch": recon_s * 1e3, "batch": B,
                       "radial": radial_stats, "bench_headline_b32": bench_row,
+                      "bf16_dot_test": dot_bf16, "hgmma": hgmma,
                       "build_s": build_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

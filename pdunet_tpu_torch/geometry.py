@@ -124,6 +124,9 @@ class ParallelPlan:
         for name, arr in zip(self.ARRAY_FIELDS, arrays):
             setattr(self, name, arr)
         self._index = {}
+        # the pair kernels' trig tables by angle group, made at first use
+        # (ops/radon/parallel.py)
+        self.pair_tables = {}
 
     def index(self, name: str) -> torch.Tensor:
         """``meta[name]`` (a tuple of row indices) as a long tensor on the

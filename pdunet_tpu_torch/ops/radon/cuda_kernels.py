@@ -4,8 +4,12 @@ Two families replace the Pallas kernels of
 ``pdunet_tpu/ops/radon/pallas_kernels.py``:
 
 * mirror-pair, ``project_pair_group`` / ``backproject_pair_group``
-  (``project_pair_group_pallas`` / ``backproject_pair_group_pallas``),
-  kernels in ``csrc/radon_pair.cu``, for plans whose angles pair;
+  (``project_pair_group_pallas`` / ``backproject_pair_group_pallas``), for
+  plans whose angles pair, with two routes: float32 operands run the
+  CUDA-core kernels of ``csrc/radon_pair.cu``; bf16 operands run the
+  tensor-core (wgmma) kernels of ``csrc/radon_pair_tc.cu``, which read the
+  plan's trig from tables that :func:`build_pair_tables` makes once per
+  plan and group (the caller, ``parallel.py``, owns and passes them);
 * per-angle, ``project_group`` / ``backproject_group``
   (``project_group_pallas`` / ``backproject_group_pallas``), kernels in
   ``csrc/radon_group.cu``, for plans whose angles do not pair (golden-angle
@@ -21,8 +25,9 @@ f64 for a float64 input on the CPU, which ``gradcheck`` uses); with
 ``cdt=torch.bfloat16`` the operands T̂, φ, f or p, W and Ŝ (or h) are
 rounded to bf16 where the twin casts them, and every sum accumulates in f32.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call does not count.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
+pair wrappers also count their tensor-core launches in ``.launches_tc``,
+and :func:`build_pair_tables` its table builds. A CPU call does not count.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ import math
 
 import torch
 
-__all__ = ["project_pair_group", "backproject_pair_group", "project_group",
-           "backproject_group", "reset_launch_counts"]
+__all__ = ["project_pair_group", "backproject_pair_group", "build_pair_tables",
+           "pair_adjoint_splits", "project_group", "backproject_group",
+           "reset_launch_counts"]
 
 
 def _q(x: torch.Tensor, cdt) -> torch.Tensor:
@@ -127,6 +133,105 @@ def _backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
             + torch.einsum(sub1t, _q(h_im, cdt), Ts))
 
 
+#: rows (image rows, table rows) of one tensor-core GEMM tile, its depth
+#: chunk, and the padding of the interleaved frequency axis
+#: (csrc/radon_pair_tc.cu TC_BM, TC_BK, FW_BN); the adjoint's output tile
+#: is _TC_ROWS x _TC_ADJ_COLS
+_TC_ROWS = 128
+_TC_DEPTH = 64
+_TC_FREQ_PAD = 128
+_TC_ADJ_COLS = 256
+
+
+def _tc_dims(N: int, K: int) -> tuple:
+    """(Np, 2Kp): the tables' padded row count and interleaved width."""
+    return (_TC_ROWS * math.ceil(N / _TC_ROWS),
+            _TC_FREQ_PAD * math.ceil(2 * K / _TC_FREQ_PAD))
+
+
+def _pair_tables(pos, sha, shb, spec, L, cdt=torch.bfloat16):
+    """Plain version of :func:`build_pair_tables`: the six (P, N, K) trig
+    tensors of :func:`_pair_spectral_tensors` as one (3, P, Np, 2Kp) table,
+    [T̂, φ_a, φ_b] with (re, im) interleaved along the frequency axis and
+    zeros in the padding; bf16 for ``cdt=torch.bfloat16``, else the
+    working dtype."""
+    Tc, Ts, PcA, PsA, PcB, PsB = _pair_spectral_tensors(pos, sha, shb, spec, L, cdt)
+    P, N, K = Tc.shape
+    Np, K2p = _tc_dims(N, K)
+    tab = torch.zeros(3, P, Np, K2p, dtype=pos.dtype, device=pos.device)
+    for t, (re, im) in enumerate(((Tc, Ts), (PcA, PsA), (PcB, PsB))):
+        tab[t, :, :N, 0:2 * K:2] = re
+        tab[t, :, :N, 1:2 * K:2] = im
+    return tab.to(torch.bfloat16) if cdt == torch.bfloat16 else tab
+
+
+def _pair_forward_tc(f, tab, sgn, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
+    """The tensor-core forward's arithmetic in its order, from the tables:
+    F rounded and zero-padded to (B, Np, Np), ĝ over the padded depth, one
+    partial Ŝ per 128-row tile, the partials summed in row-tile order, then
+    stage 3. Equals :func:`_project_pair_group` up to f32 summation order."""
+    B, N, _ = f.shape
+    _, P, Np, K2p = tab.shape
+    K = Wc.shape[0]
+    R = Np // _TC_ROWS
+    t = tab.to(f.dtype)
+    Fp = f.new_zeros(B, Np, Np)
+    Fp[:, :N, :N] = _q(f if contract_x else f.transpose(1, 2), cdt)
+    g = torch.einsum("brc,pcn->bprn", Fp, t[0])              # (B, P, Np, 2Kp)
+    gr = g[..., 0::2].reshape(B, P, R, _TC_ROWS, -1)
+    gi = g[..., 1::2].reshape(B, P, R, _TC_ROWS, -1)
+    gib = gi * sgn[None, :, None, None, None]
+    ca, sa, cb, sb = (t[m][..., ri::2].reshape(P, R, _TC_ROWS, -1)
+                      for m in (1, 2) for ri in (0, 1))
+    part = torch.stack([(gr * ca - gi * sa).sum(3), (gr * sa + gi * ca).sum(3),
+                        (gr * cb - gib * sb).sum(3), (gr * sb + gib * cb).sum(3)])
+    shat = part[:, :, :, 0]
+    for rt in range(1, R):
+        shat = shat + part[:, :, :, rt]
+    shat = _q(shat[..., :K], cdt)                            # (4, B, P, K)
+    Wc, Ws = _q(Wc, cdt), _q(Ws, cdt)
+    out = torch.stack([shat[2 * m] @ Wc - shat[2 * m + 1] @ Ws for m in (0, 1)], dim=2)
+    return out.reshape(B, 2 * P, -1)
+
+
+def _pair_adjoint_tc(p, tab, sgn, msk, Wc, Ws, contract_x: bool, N: int, G: int,
+                     cdt=torch.bfloat16):
+    """The tensor-core adjoint's arithmetic in its order, from the tables:
+    Ŝ = Wᵀ p rounded, h built per (pair, k) and rounded, one GEMM over
+    (pair, k, re/im) per slice of :func:`pair_adjoint_splits` (slices of
+    64-deep chunks), the G partial images summed in slice order. Equals
+    :func:`_backproject_pair_group` up to f32 summation order."""
+    B, twoP, S = p.shape
+    P = twoP // 2
+    _, _, Np, K2p = tab.shape
+    K = Wc.shape[0]
+    t = tab.to(p.dtype)
+    pp = _q(p, cdt).reshape(B, P, 2, S)
+    pm = torch.stack([pp[:, :, 0], pp[:, :, 1] * msk[None, :, None]], dim=2)
+    shat = p.new_zeros(B, P, 2, K2p // 2, 2)
+    shat[..., :K, 0] = _q(pm @ _q(Wc, cdt).T, cdt)
+    shat[..., :K, 1] = _q(-(pm @ _q(Ws, cdt).T), cdt)
+    sra, sia = shat[:, :, 0, None, :, 0], shat[:, :, 0, None, :, 1]   # (B, P, 1, Kp)
+    srb, sib = shat[:, :, 1, None, :, 0], shat[:, :, 1, None, :, 1]
+    ca, sa, cb, sb = (t[m][None, ..., ri::2] for m in (1, 2) for ri in (0, 1))
+    sg = sgn[None, :, None, None]
+    h = torch.empty(B, P, Np, K2p, dtype=p.dtype, device=p.device)
+    h[..., 0::2] = (sra * ca + sia * sa) + (srb * cb + sib * sb)
+    h[..., 1::2] = (-(sra * sa) + sia * ca) + sg * (-(srb * sb) + sib * cb)
+    # depth (pair, k, re/im) flattened; slice g takes 64-deep chunks
+    # [n·g/G, n·(g+1)/G) of the n = P·2Kp/64
+    hd = _q(h, cdt).permute(0, 2, 1, 3).reshape(B, Np, P * K2p)
+    td = t[0].permute(0, 2, 1).reshape(P * K2p, Np)
+    n = P * K2p // _TC_DEPTH
+    out = None
+    for g in range(G):
+        lo, hi = n * g // G * _TC_DEPTH, n * (g + 1) // G * _TC_DEPTH
+        part = hd[:, :, lo:hi] @ td[lo:hi]
+        out = part if out is None else out + part
+    out = out[:, :N, :N]
+    return (out if contract_x else out.transpose(1, 2)).contiguous()
+
+
 def _spectral_tensors(pos, shift, spec, L, cdt=torch.float32):
     """Per-angle splat T̂ and shear phase φ, each (A_g, N, K):
     T̂ = spec·e^{−2πik·pos/L}, φ = e^{+2πik·shift/L}."""
@@ -189,6 +294,9 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "radon_pair_project": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_pair_backproject": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    "radon_pair_tc_tables": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "radon_pair_tc_project": [_P] * 8 + [_I] * 8 + [_P],
+    "radon_pair_tc_backproject": [_P] * 9 + [_I] * 9 + [_P],
     "radon_group_project": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_group_backproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
 }
@@ -233,83 +341,200 @@ def _check_dispatch(x: torch.Tensor, L: int, K: int):
         raise ValueError(f"spec has K={K} frequencies, expected L//2+1={L // 2 + 1}")
 
 
+def _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev):
+    for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
+        _check(name, t, (P, N), dev)
+    _check("sgn", sgn, (P,), dev)
+    if msk is not None:
+        _check("msk", msk, (P,), dev)
+    _check("spec", spec, (K,), dev)
+    _check("Wc", Wc, (K, S), dev)
+    _check("Ws", Ws, (K, S), dev)
+
+
+def _check_tables(tables, P, N, K, dev):
+    if tables is None:
+        raise ValueError("a CUDA bf16 pair call needs the plan's trig tables "
+                         "(build_pair_tables of the same pos/sha/shb rows)")
+    Np, K2p = _tc_dims(N, K)
+    if tables.device != dev:
+        raise ValueError(f"tables are on {tables.device}, expected {dev}")
+    if tables.dtype != torch.bfloat16:
+        raise TypeError(f"tables must be bfloat16, got {tables.dtype}")
+    if tuple(tables.shape) != (3, P, Np, K2p):
+        raise ValueError(f"tables have shape {tuple(tables.shape)}, "
+                         f"expected {(3, P, Np, K2p)}")
+    if not tables.is_contiguous() or tables.data_ptr() % 16:
+        raise ValueError("tables must be contiguous and 16-byte aligned")
+
+
 def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def _launch(name, *args):
+    """Call the C entry point ``name`` on the current stream; a launch
+    error raises."""
+    _raise_on(_fn(name)(*args, torch.cuda.current_stream().cuda_stream), name)
+
+
+def _project_pair_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L, contract_x: bool, cdt):
+    """The CUDA-core kernel of ``csrc/radon_pair.cu``: the float32 route of
+    :func:`project_pair_group`; with bf16 operands only an A/B baseline
+    (``chip_smoke.py``, ``scripts/trig_proto.py``) that no dispatch
+    reaches."""
+    K, S = Wc.shape
+    _check_dispatch(f, L, K)
+    B, N, _ = f.shape
+    P = pos.shape[0]
+    dev = f.device
+    _check("f", f, (B, N, N), dev)
+    _check_pair_plan(pos, sha, shb, sgn, None, spec, Wc, Ws, P, N, K, S, dev)
+    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_pair_project",
+                f.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
+                sgn.data_ptr(), spec.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
+                shat.data_ptr(), out.data_ptr(), B, N, P, K, S, 2.0 * math.pi / L,
+                int(contract_x), _compute_flag(cdt))
+    return out
+
+
+def _backproject_pair_cc(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L, contract_x: bool,
+                         N: int, cdt):
+    """The CUDA-core adjoint of ``csrc/radon_pair.cu`` (see
+    :func:`_project_pair_cc`)."""
+    K, S = Wc.shape
+    _check_dispatch(p, L, K)
+    B = p.shape[0]
+    P = pos.shape[0]
+    dev = p.device
+    _check("p", p, (B, 2 * P, S), dev)
+    _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev)
+    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, P, 2, K, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_pair_backproject",
+                p.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
+                sgn.data_ptr(), msk.data_ptr(), spec.data_ptr(), Wc.data_ptr(),
+                Ws.data_ptr(), shat.data_ptr(), out.data_ptr(), B, N, P, K, S,
+                2.0 * math.pi / L, int(contract_x), _compute_flag(cdt))
+    return out
+
+
+def build_pair_tables(pos, sha, shb, spec, L):
+    """The tensor-core route's trig tables of one pair group: (3, P, Np, 2Kp)
+    bf16, [T̂, φ_a, φ_b] with (re, im) interleaved along the frequency axis,
+    Np = 128·⌈N/128⌉, 2Kp = 128·⌈2K/128⌉, zero-padded (layout of
+    :func:`_pair_tables`). CPU tensors run :func:`_pair_tables`; CUDA
+    tensors launch the kernel of ``csrc/radon_pair_tc.cu``, which forms each
+    value with the CUDA-core kernels' arithmetic."""
+    if pos.device.type == "cpu":
+        return _pair_tables(pos, sha, shb, spec, L)
+    _check_device(pos)
+    P, N = pos.shape
+    K = spec.shape[0]
+    dev = pos.device
+    for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
+        _check(name, t, (P, N), dev)
+    _check("spec", spec, (K,), dev)
+    Np, K2p = _tc_dims(N, K)
+    tab = torch.empty((3, P, Np, K2p), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_pair_tc_tables", pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
+                spec.data_ptr(), tab.data_ptr(), P, N, Np, K, K2p // 2, 2.0 * math.pi / L)
+    build_pair_tables.launches += 1
+    return tab
+
+
+def pair_adjoint_splits(B: int, N: int, P: int, n_sms: int) -> int:
+    """How many slices the tensor-core adjoint splits its depth (the pairs'
+    64-deep chunks of (k, re/im), in order) into: enough that its
+    (128-row x 256-column) output tiles times the slices fill every SM once
+    (one block per SM fits); never more slices than pairs. Each slice writes
+    a partial image, summed in slice order."""
+    tiles = B * math.ceil(N / _TC_ROWS) * math.ceil(N / _TC_ADJ_COLS)
+    return max(1, min(P, math.ceil(n_sms / tiles)))
+
+
 def project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
-                       contract_x: bool, cdt=torch.float32):
+                       contract_x: bool, cdt=torch.float32, tables=None):
     """Fused mirror-pair forward for one angle group:
     f (B,N,N) → (B, 2P, S) float32, rows interleaved [pair0-a, pair0-b, ...].
 
-    CPU tensors run :func:`_project_pair_group`; CUDA tensors launch the
-    kernel of ``csrc/radon_pair.cu``."""
+    CPU tensors run :func:`_project_pair_group`. CUDA tensors launch, with
+    float32 operands, the CUDA-core kernel of ``csrc/radon_pair.cu``; with
+    bf16 operands the tensor-core kernels of ``csrc/radon_pair_tc.cu``,
+    which read ``tables`` (:func:`build_pair_tables` of the same rows) and
+    raise without them."""
     if f.device.type == "cpu":
         return _project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
                                    contract_x, cdt)
     K, S = Wc.shape
     _check_dispatch(f, L, K)
-    bf16 = _compute_flag(cdt)
+    if not _compute_flag(cdt):
+        out = _project_pair_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L, contract_x, cdt)
+        project_pair_group.launches += 1
+        return out
     B, N, _ = f.shape
     P = pos.shape[0]
     dev = f.device
+    _check_tables(tables, P, N, K, dev)
     _check("f", f, (B, N, N), dev)
-    for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
-        _check(name, t, (P, N), dev)
-    _check("sgn", sgn, (P,), dev)
-    _check("spec", spec, (K,), dev)
-    _check("Wc", Wc, (K, S), dev)
-    _check("Ws", Ws, (K, S), dev)
+    _check_pair_plan(pos, sha, shb, sgn, None, spec, Wc, Ws, P, N, K, S, dev)
+    Np, K2p = _tc_dims(N, K)
     out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    fb = torch.empty((B, Np, Np), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((Np // _TC_ROWS, B, 2 * P, K, 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _fn("radon_pair_project")(
-            f.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
-            sgn.data_ptr(), spec.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
-            shat.data_ptr(), out.data_ptr(), B, N, P, K, S, 2.0 * math.pi / L,
-            int(contract_x), bf16, stream)
+        _launch("radon_pair_tc_project",
+                f.data_ptr(), tables.data_ptr(), sgn.data_ptr(), Wc.data_ptr(),
+                Ws.data_ptr(), fb.data_ptr(), part.data_ptr(), out.data_ptr(),
+                B, N, Np, P, K, K2p // 2, S, int(contract_x))
     project_pair_group.launches += 1
-    _raise_on(rc, "project_pair_group")
+    project_pair_group.launches_tc += 1
     return out
 
 
 def backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
-                           contract_x: bool, N: int, cdt=torch.float32):
+                           contract_x: bool, N: int, cdt=torch.float32, tables=None):
     """Fused mirror-pair adjoint for one angle group:
     p (B, 2P, S) interleaved → (B, N, N) float32.
 
-    CPU tensors run :func:`_backproject_pair_group`; CUDA tensors launch the
-    kernel of ``csrc/radon_pair.cu``."""
+    CPU tensors run :func:`_backproject_pair_group`; CUDA tensors take the
+    routes of :func:`project_pair_group`."""
     if p.device.type == "cpu":
         return _backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc,
                                        Ws, L, contract_x, cdt)
     K, S = Wc.shape
     _check_dispatch(p, L, K)
-    bf16 = _compute_flag(cdt)
-    B, twoP, _ = p.shape
+    if not _compute_flag(cdt):
+        out = _backproject_pair_cc(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
+                                   contract_x, N, cdt)
+        backproject_pair_group.launches += 1
+        return out
+    B = p.shape[0]
     P = pos.shape[0]
     dev = p.device
+    _check_tables(tables, P, N, K, dev)
     _check("p", p, (B, 2 * P, S), dev)
-    for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
-        _check(name, t, (P, N), dev)
-    _check("sgn", sgn, (P,), dev)
-    _check("msk", msk, (P,), dev)
-    _check("spec", spec, (K,), dev)
-    _check("Wc", Wc, (K, S), dev)
-    _check("Ws", Ws, (K, S), dev)
+    _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev)
+    Np, K2p = _tc_dims(N, K)
+    G = pair_adjoint_splits(B, N, P, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, P, 2, K, 2), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    shat = torch.empty((B, P, K2p // 2, 4), dtype=torch.float32, device=dev)
+    part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
+            if G > 1 else None)
     with torch.cuda.device(dev):
-        rc = _fn("radon_pair_backproject")(
-            p.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
-            sgn.data_ptr(), msk.data_ptr(), spec.data_ptr(), Wc.data_ptr(),
-            Ws.data_ptr(), shat.data_ptr(), out.data_ptr(), B, N, P, K, S,
-            2.0 * math.pi / L, int(contract_x), bf16, stream)
+        _launch("radon_pair_tc_backproject",
+                p.data_ptr(), tables.data_ptr(), sgn.data_ptr(), msk.data_ptr(),
+                Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                B, N, Np, P, K, K2p // 2, S, G, int(contract_x))
     backproject_pair_group.launches += 1
-    _raise_on(rc, "backproject_pair_group")
+    backproject_pair_group.launches_tc += 1
     return out
 
 
@@ -341,14 +566,12 @@ def project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
     _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
     out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
     shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _fn("radon_group_project")(
-            f.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
-            Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(), out.data_ptr(),
-            B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16, stream)
+        _launch("radon_group_project",
+                f.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
+                Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(), out.data_ptr(),
+                B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
     project_group.launches += 1
-    _raise_on(rc, "project_group")
     return out
 
 
@@ -385,25 +608,21 @@ def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
     shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
     part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
             if G > 1 else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _fn("radon_group_backproject")(
-            p.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
-            Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
-            None if part is None else part.data_ptr(), out.data_ptr(),
-            B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16, stream)
+        _launch("radon_group_backproject",
+                p.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
+                Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16)
     backproject_group.launches += 1
-    _raise_on(rc, "backproject_group")
     return out
 
 
-project_pair_group.launches = 0
-backproject_pair_group.launches = 0
-project_group.launches = 0
-backproject_group.launches = 0
-
-
 def reset_launch_counts():
-    for fn in (project_pair_group, backproject_pair_group, project_group,
-               backproject_group):
+    for fn in (project_pair_group, backproject_pair_group, build_pair_tables,
+               project_group, backproject_group):
         fn.launches = 0
+    project_pair_group.launches_tc = backproject_pair_group.launches_tc = 0
+
+
+reset_launch_counts()

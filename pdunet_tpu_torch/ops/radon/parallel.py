@@ -8,6 +8,11 @@ kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
 Each pair is an exact transpose, so ``make_parallel_ops`` pairs them as
 each other's gradient.
 
+With bf16 operands on a CUDA tensor the pair kernels run on the tensor
+cores and read the plan's trig tables (``build_pair_tables``), built on the
+card at the plan's first such call, one per angle group, and kept on the
+plan for every later call.
+
 Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
 ``(..., A, S)``.
 """
@@ -23,6 +28,7 @@ from pdunet_tpu_torch.geometry import ParallelGeometry, ParallelPlan, build_para
 from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     backproject_group,
     backproject_pair_group,
+    build_pair_tables,
     project_group,
     project_pair_group,
 )
@@ -44,6 +50,19 @@ def _pair_args(arr, grp):
     return tuple(arr(f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb", "sgn"))
 
 
+def _pair_tables(plan: ParallelPlan, grp: str, x: torch.Tensor, cdt):
+    """The group's trig tables for the tensor-core route (CUDA, bf16), made
+    once per plan; None where the kernels do not read them."""
+    if cdt != torch.bfloat16 or x.device.type != "cuda":
+        return None
+    if grp not in plan.pair_tables:
+        with torch.no_grad():
+            plan.pair_tables[grp] = build_pair_tables(
+                *(getattr(plan, f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb")),
+                plan.spec, plan.meta["S_ext"])
+    return plan.pair_tables[grp]
+
+
 def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
     """Factored parallel-beam forward projection. image (..., N, N) → (..., A, S)."""
     meta = plan.meta
@@ -58,7 +77,8 @@ def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
     for grp, contract_x in (("x", True), ("y", False)):
         if pairs and meta[f"P_{grp}"]:
             parts.append(project_pair_group(
-                f, *_pair_args(arr, grp), spec, Wc, Ws, L, contract_x, cdt))
+                f, *_pair_args(arr, grp), spec, Wc, Ws, L, contract_x, cdt,
+                tables=_pair_tables(plan, grp, f, cdt)))
         elif not pairs and meta[f"A_{grp}"]:
             parts.append(project_group(
                 f, arr(f"pos_{grp}"), arr(f"shift_{grp}"), spec, Wc, Ws, L,
@@ -84,7 +104,7 @@ def parallel_backproject(plan: ParallelPlan, sino: torch.Tensor) -> torch.Tensor
             pg = p.index_select(1, plan.index(f"pair_take_{grp}"))
             part = backproject_pair_group(
                 pg, *_pair_args(arr, grp), arr(f"pair_msk_{grp}"), spec, Wc, Ws,
-                L, contract_x, N, cdt)
+                L, contract_x, N, cdt, tables=_pair_tables(plan, grp, pg, cdt))
         elif not pairs and meta[f"A_{grp}"]:
             pg = p.index_select(1, plan.index(f"idx_{grp}"))
             part = backproject_group(

@@ -5,7 +5,10 @@ Counterpart of ``scripts/trig_proto.py``. The pair forward generates six
 flagship plan shape (256², 90 of 360 angles, x group, batch 32, bf16
 operands):
 
-  A. shipped  — precise sincosf per element (``project_pair_group``)
+  A. shipped  — precise sincosf per element (the pair forward's CUDA-core
+                kernel, ``_project_pair_cc``: like with like beside B and C;
+                ``project_pair_group``'s bf16 route now runs on the tensor
+                cores from per-plan trig tables)
   B. no-trig  — trig tensors replaced by mul-adds of the same shape (same
                 products; the time if trig were free: wrong numbers)
   C. doubling — trig from per-pair seeds by block-doubling rotors
@@ -28,7 +31,7 @@ import torch
 
 from pdunet_tpu_torch.bench import device_kind, timeit
 from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
-from pdunet_tpu_torch.ops.radon.cuda_kernels import project_pair_group
+from pdunet_tpu_torch.ops.radon.cuda_kernels import _project_pair_cc, project_pair_group
 from pdunet_tpu_torch.ops.radon.proto_kernels import (
     phase_seeds,
     project_pair_group_doubling,
@@ -69,7 +72,8 @@ def main(argv=None):
     cdt = torch.bfloat16
 
     def shipped(x):
-        return project_pair_group(x, *rows, plan.spec, plan.Wc, plan.Ws, L, True, cdt)
+        fn = project_pair_group if x.device.type == "cpu" else _project_pair_cc
+        return fn(x, *rows, plan.spec, plan.Wc, plan.Ws, L, True, cdt)
 
     def notrig(x):
         return project_pair_group_notrig(x, *rows, plan.spec, plan.Wc, plan.Ws, L, True, cdt)
