@@ -12,7 +12,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      PyTorch version on the card, float32 and bf16 operands, both groups:
      relative error ≤ 1e-5 (f32, CUDA-core route) / ≤ 5e-3 (bf16, the
      tensor-core route from the plan's trig tables), TF32 off for the
-     reference; the card's tables against the plain builder; the bf16 route
+     reference; the card's tables bit-equal to the plain builder's; the bf16 route
      again at B = 1 and 32 and at a size whose rows do not fill a tile (96²,
      24 of 96 angles), and the CUDA-core kernels in bf16 (the A/B baseline);
   3. the adjoint dot-product test of the routed kernel pair in float32
@@ -29,23 +29,37 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   5. timings of each kernel beside its bound and its plain version, a bf16
      torch.matmul of stage 1's shape as a labelled yardstick, the pair
      kernels' tensor-core and CUDA-core bf16 routes in turns at B = 4 and
-     B = 256, warm and with the L2 cache flushed before each call, the table
-     build time, and reconstruction slices/s and profile at batch 4;
+     B = 256, warm and with the L2 cache flushed before each call, the
+     adjoint's time against its slice count at B = 4, the table build time,
+     and reconstruction slices/s and profile at batch 4;
   6. at the radial path's shapes (pdunet_radial: 256² complex images, 128 of
      512 golden-angle spokes of 512 samples, so the per-angle kernels see
      B' = 2·4 = 8 real images, A_x = A_y = 64 spokes, K = 256, S = 1024),
-     hold the per-angle kernels against their plain versions, f32 and bf16,
-     both groups, to the same tolerances, and run the complex adjoint dot
-     test of the fourier-slice NUFFT (≤ 1e-5);
+     the card's per-angle trig tables bit-equal to the plain builder's, and
+     the per-angle kernels against their plain versions, f32 (CUDA cores)
+     and bf16 (tensor cores, from the tables), both groups, to the same
+     tolerances; the tensor-core route against the plain version of its own
+     tiling, again at B' = 2 and on the ragged 32² radial plan (24 spokes of
+     64 samples), and the CUDA-core kernels in bf16 (the A/B baseline); the
+     complex adjoint dot test of the fourier-slice NUFFT (≤ 1e-5) and the
+     bf16 dot test of the tensor-core pair per group (≤ 2× the plain bf16
+     pair's mismatch plus 1e-4);
   7. the radial serving path at full width (build_task("pdunet_radial") →
      make_batch → batch_from_images(image_c) → recon_fn → PSNR/SSIM on the
-     magnitude), random weights from a seed: every per-angle kernel must be
-     launched 2·(2 + n_iters) times per batch and no pair kernel at all; the
-     card's sino and f0 must match the CPU plain path (batch 1), and a
+     magnitude), random weights from a seed; launch counters, zeroed before
+     build_task, must show the per-angle tables built once per group, every
+     bf16 A and A† (the power iteration in build_task, 2·n_iters per op per
+     batch in recon_fn) on the tensor-core route, synthesis and the DCF
+     adjoint (4 per op per batch) on the float32 route, and no pair kernel;
+     the card's sino and f0 must match the CPU plain path (batch 1), and a
      cut-down f32 radial task must reconstruct the same on card and CPU;
-  8. CUDA-event timings of the per-angle kernels beside their bound, plain
-     version and stage-1 matmul yardstick, and the radial recon's slices/s
-     at batch 4;
+  8. timings of the per-angle kernels beside their bound, plain version and
+     stage-1 matmul yardstick, both bf16 routes in turns at B' = 8 and
+     B' = 256 (bench's batch 128), warm and L2-cold, the adjoint's time
+     against its slice count at B' = 8, each call's device time by kernel,
+     the table build, and the radial recon at batch 4: slices/s with the
+     per-angle bf16 calls on either route in turns, the host's time to
+     enqueue one recon, and the profile on both routes;
   9. the two kernel probes as a user runs them (``python -m
      pdunet_tpu_torch.scripts.trig_proto`` / ``pack_proto``: flagship plan,
      256², 90 of 360 angles, B=32, their own checks and timings); launch
@@ -61,15 +75,16 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only.
 
-Output: a ``{"kernels": [...]}`` JSON line (nine kernels: the six TPU
-kernel rows, row 5 as its doubling and no-trig variants, and the pair
-kernels' trig-table builder), then the card's name and power limit, then
-the last line
+Output: a ``{"kernels": [...]}`` JSON line (ten kernels: the six TPU
+kernel rows, row 5 as its doubling and no-trig variants, and the pair and
+per-angle kernels' trig-table builders), then the card's name and power
+limit, then the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import pathlib
@@ -270,6 +285,69 @@ def recon_rate(one_recon, B, card, label):
     return recon_s
 
 
+def host_ms(fn, reps=5):
+    """Host milliseconds to run ``fn()`` with nothing synchronising inside
+    the window (the device queue empty before it): what the host alone
+    needs per call. Where it exceeds the device time, the host sets the
+    pace."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+def call_profile(fn, label, card, reps=3):
+    """Device time of one ``fn()`` by kernel (torch.profiler over ``reps``
+    calls): each kernel's share of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kern)
+    if total == 0:
+        print(f"[profile] {label}: the profiler saw no device time")
+        return {}
+    shares = {}
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total):
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        name = name.split("::")[-1].split(" ")[-1]
+        shares[name] = e.self_device_time_total / 1e3 / reps
+        print(f"[profile] {label}: {shares[name]:.4f} ms per call "
+              f"({e.self_device_time_total / total:.3f}) {name} ({card})")
+    return shares
+
+
+def split_sweep(ck, splits, call, tiles, counts, label, card):
+    """Device time of the adjoint ``call(g)`` (mean of x and y) with its
+    depth split forced to each of ``counts`` slices (``splits`` names the
+    wrapper's split function in cuda_kernels), beside the blocks it
+    launches over ``tiles`` output tiles: one block per SM fits, so
+    ⌈tiles·G / n_sms⌉ waves."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = getattr(ck, splits)
+    out = {}
+    for G in counts:
+        setattr(ck, splits, lambda *a, G=G: G)
+        try:
+            out[G] = sum(device_ms(lambda g=g: call(g)) for g in "xy") / 2
+        finally:
+            setattr(ck, splits, chosen)
+        print(f"[time] {label}: G = {G} slices, {tiles * G} blocks "
+              f"({-(-tiles * G // n_sms)} waves on {n_sms} SMs): {out[G]:.4f} ms ({card})")
+    return out
+
+
 def profile_recon(one_recon, card, reps=3):
     """Device time of ``reps`` recons by kernel, from torch.profiler: where
     the time goes, and the device's idle share of the wall time."""
@@ -292,7 +370,8 @@ def profile_recon(one_recon, card, reps=3):
     for e in kern:
         n = e.key
         g = ("mirror-pair projector kernels (radon_pair.cu, radon_pair_tc.cu)" if "pair_" in n
-             else "per-angle projector kernels (radon_group.cu)" if "group_" in n
+             else "per-angle projector kernels (radon_group.cu, radon_group_tc.cu)"
+             if "group_" in n
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
              else "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
@@ -346,28 +425,25 @@ def pair_counts(ck):
             "build_pair_tables": (ck.build_pair_tables.launches, 0)}
 
 
-def pair_ab(ck, plan, tabs, gen, card, batches):
-    """Device times per group call (mean of x and y) of the pair kernels'
-    bf16 routes, CUDA-core and tensor-core in turns (cc, tc, tc, cc), warm
-    and with the L2 cache flushed before each call, at each batch size,
-    beside the bound and a bf16 torch.matmul of stage 1's shape."""
-    m = plan.meta
-    N, S, K, P = m["N"], m["S"], m["K"], m["P_x"]
-    dev = plan.spec.device
+def route_ab(ops, calls_for, cost, mm_shape, card, batches, dev, gen):
+    """Device times per group call (mean of x and y) of two kernels' bf16
+    routes, CUDA-core and tensor-core in turns (cc, tc, tc, cc), warm and
+    with the L2 cache flushed before each call, at each batch size B, beside
+    the bound and a bf16 torch.matmul of stage 1's shape. ``ops`` maps each
+    kernel to its (tensor-core wrapper, CUDA-core function);
+    ``calls_for(B)`` gives each kernel's call(g, cdt, impl) on random
+    inputs of batch B; ``cost(B)`` its (flops, bytes) per call;
+    ``mm_shape(B)`` the yardstick's (matrices, rows, depth, columns)."""
     bf16 = torch.bfloat16
     flush = torch.empty(64 * 2 ** 20, device=dev)  # 256 MB
-    out = {"project_pair_group": {}, "backproject_pair_group": {}}
+    out = {op: {} for op in ops}
     for B in batches:
-        f = torch.randn(B, N, N, generator=gen, device=dev)
-        p = {g: torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
-        fwd, adj = pair_calls(ck, plan, tabs, f, p)
-        fl, nb = pair_cost(B, N, P, K, S)
+        calls = calls_for(B)
+        fl, nb = cost(B)
         bound, by = bound_ms(fl, nb, "bfloat16")
         iters = 10 if B <= 32 else 4
-        for op, call, tc, cc in (
-                ("project_pair_group", fwd, ck.project_pair_group, ck._project_pair_cc),
-                ("backproject_pair_group", adj, ck.backproject_pair_group,
-                 ck._backproject_pair_cc)):
+        for op, (tc, cc) in ops.items():
+            call = calls[op]
             turns = {}
             for mode, buf in (("", None), ("_cold", flush)):
                 for impl, key in ((cc, "cc"), (tc, "tc"), (tc, "tc"), (cc, "cc")):
@@ -383,52 +459,143 @@ def pair_ab(ck, plan, tabs, gen, card, batches):
                   f"{row[f'ms_cc_b{B}']:.4f} / {row[f'ms_cc_cold_b{B}']:.4f} ms; turns "
                   f"{ {k: [round(v, 4) for v in vs] for k, vs in turns.items()} }; bound "
                   f"{bound:.4f} ms ({by}), {fl / (tc_ms * 1e-3) / 1e12:.1f} TFLOP/s ({card})")
-        Tm = torch.randn(P, N, 2 * K, generator=gen, device=dev).to(bf16)
-        Fm = f.to(bf16).reshape(1, B * N, N).expand(P, B * N, N).contiguous()
+        del calls
+        n_mat, rows, depth, cols = mm_shape(B)
+        Tm = torch.randn(n_mat, depth, cols, generator=gen, device=dev).to(bf16)
+        Fm = torch.randn(rows, depth, generator=gen, device=dev).to(bf16)
+        Fm = Fm.expand(n_mat, rows, depth).contiguous()
         mm = device_ms(lambda: torch.matmul(Fm, Tm), iters)
         del Fm, Tm
         print(f"[time] yardstick at B={B}: bf16 torch.matmul of stage 1's shape "
-              f"({P} x [{B * N}x{N}] @ [{N}x{2 * K}]) {mm:.4f} ms ({card})")
+              f"({n_mat} x [{rows}x{depth}] @ [{depth}x{cols}]) {mm:.4f} ms ({card})")
         for op in out:
             out[op][f"stage1_matmul_bf16_ms_b{B}"] = mm
     return out
 
 
-def table_entry(ck, plan, tab_err, launches, card):
-    """The trig-table builder's JSON entry: its device time for one group
+def check_tables(build, plain, args_by_group):
+    """The card's trig tables of each angle group against the plain builder
+    on the same rows: bit-equal (the kernels form each value with the plain
+    version's argument rounding and precise sincosf). Returns the tables by
+    group."""
+    tabs = {}
+    for g, args in args_by_group.items():
+        tabs[g] = build(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        mae = float((tabs[g].float() - ref.float()).abs().max())
+        print(f"[check] {build.__name__} group {g}: {tuple(tabs[g].shape)} bf16 vs plain "
+              f"builder: max_abs {mae:.3e} (bit-equal: {torch.equal(tabs[g], ref)})")
+        check(torch.equal(tabs[g], ref), f"{build.__name__} group {g}: not bit-equal")
+    return tabs
+
+
+def table_entry(build, plain, args, launches, replaces, path, card):
+    """A trig-table builder's JSON entry: its device time for one group
     beside the plain builder's and its bound (bytes: the plan rows read
-    once, the table written once)."""
-    m = plan.meta
-    rows = pair_rows(plan, "x")[:3]
-    L = m["S_ext"]
-    ms = device_ms(lambda: ck.build_pair_tables(*rows, plan.spec, L))
-    plain_ms = cuda_ms(lambda: ck._pair_tables(*rows, plan.spec, L), iters=5)
-    tab = ck.build_pair_tables(*rows, plan.spec, L)
-    nbytes = tab.numel() * 2 + 4 * (3 * m["P_x"] * m["N"] + m["K"])
+    once, the table written once). ``args`` are the builder's arguments;
+    its tables were bit-equal to the plain builder's (check_tables)."""
+    ms = device_ms(lambda: build(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+    tab = build(*args)
+    nbytes = tab.numel() * 2 + 4 * sum(a.numel() for a in args if torch.is_tensor(a))
     bound, by = bound_ms(0, nbytes, "bfloat16")
-    print(f"[time] build_pair_tables (one group, {tuple(tab.shape)} bf16, "
-          f"{nbytes / 1e6:.2f} MB): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}) ({card})")
-    return {"name": "build_pair_tables", "route": "cuda",
-            "source": "pdunet_tpu_torch/ops/radon/csrc/radon_pair_tc.cu",
-            "replaces": "pdunet_tpu/ops/radon/pallas_kernels.py:167",
-            "launches": launches, "max_abs_err": tab_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "path": "once per plan and angle group (pdunet_parallel: in build_task)"}
+    name = build.__name__
+    print(f"[time] {name} (one group, {tuple(tab.shape)} bf16, {nbytes / 1e6:.2f} MB): "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+    source = "radon_pair_tc.cu" if name == "build_pair_tables" else "radon_group_tc.cu"
+    return {"name": name, "route": "cuda",
+            "source": f"pdunet_tpu_torch/ops/radon/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "path": path}
+
+
+#: the kernels of csrc/radon_group_tc.cu
+GROUP_TC_KERNELS = ("group_tc_tables", "group_tc_prep", "group_tc_fwd", "group_tc_w_prep",
+                    "group_tc_round", "group_tc_fwd_stage3", "group_tc_adj_stage3t",
+                    "group_tc_adj", "group_tc_reduce")
+
+
+def group_counts(ck):
+    """(launches, tensor-core launches) of the per-angle wrappers and their
+    table builder."""
+    return {"project_group": (ck.project_group.launches, ck.project_group.launches_tc),
+            "backproject_group": (ck.backproject_group.launches,
+                                  ck.backproject_group.launches_tc),
+            "build_group_tables": (ck.build_group_tables.launches, 0)}
+
+
+def group_calls(ck, plan, tabs, f, p):
+    """(fwd, adj) for check_kernels on a per-angle plan: fwd(g, cdt, impl)
+    runs a per-angle forward implementation on the image batch f, adj(g,
+    cdt, impl) an adjoint on p[g]; the wrappers get the group's trig
+    tables, the CUDA-core adjoint the image size (the plain versions read
+    it off pos)."""
+    L, N = plan.meta["S_ext"], plan.meta["N"]
+
+    def rows(g):
+        return (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec,
+                plan.Wc, plan.Ws, L, g == "x")
+
+    def fwd(g, cdt, impl):
+        if impl is ck.project_group:
+            return impl(f, *rows(g), cdt, tables=tabs[g])
+        return impl(f, *rows(g), cdt)
+
+    def adj(g, cdt, impl):
+        if impl is ck.backproject_group:
+            return impl(p[g], *rows(g), N, cdt, tables=tabs[g])
+        if impl is ck._backproject_group_cc:
+            return impl(p[g], *rows(g), N, cdt)
+        return impl(p[g], *rows(g), cdt)
+
+    return fwd, adj
+
+
+def group_tables(ck, plan):
+    """The card's per-angle trig tables of both groups, checked bit-equal
+    to the plain builder's."""
+    return check_tables(ck.build_group_tables, ck._group_tables,
+                        {g: (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"),
+                             plan.spec, plan.meta["S_ext"]) for g in "xy"})
+
+
+@contextlib.contextmanager
+def cc_route(ck):
+    """Send parallel.py's per-angle calls to the CUDA-core kernels whatever
+    their operand type: the A/B baseline of the tensor-core route for a
+    whole recon (the main path never takes it)."""
+    from pdunet_tpu_torch.ops.radon import parallel
+
+    saved = parallel.project_group, parallel.backproject_group
+    parallel.project_group = lambda f, *a, tables=None: ck._project_group_cc(f, *a)
+    parallel.backproject_group = lambda p, *a, tables=None: ck._backproject_group_cc(p, *a)
+    try:
+        yield
+    finally:
+        parallel.project_group, parallel.backproject_group = saved
 
 
 def radial_phases(dev, card, gen):
     """Phases 6-8: the per-angle kernels and the pdunet_radial serving path.
     Returns the kernels' JSON entries and the path's summary numbers."""
+    import inspect
+
     import numpy as np
 
     from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.data.synth import random_phantom_batch
+    from pdunet_tpu_torch.geometry import RadialGeometry
     from pdunet_tpu_torch.ops.metrics import psnr, ssim
     from pdunet_tpu_torch.ops.nufft import make_radial_ops
-    from pdunet_tpu_torch.ops.nufft.fourier_slice import fs_nufft_adjoint, fs_nufft_forward
+    from pdunet_tpu_torch.ops.nufft.fourier_slice import (
+        build_fs_plan,
+        fs_nufft_adjoint,
+        fs_nufft_forward,
+    )
     from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
-    from pdunet_tpu_torch.training.tasks import build_geometries, build_task
+    from pdunet_tpu_torch.training.tasks import build_geometries, build_task, estimate_opnorm
 
     # -- 6. per-angle kernels against their plain versions -------------------
     config = get_preset("pdunet_radial")
@@ -448,23 +615,46 @@ def radial_phases(dev, card, gen):
     f = torch.randn(Bp, N, N, generator=gen, device=dev)
     p = {g: torch.randn(Bp, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"}
 
-    def rows(g):
-        return (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec,
-                plan.Wc, plan.Ws, L, g == "x")
-
-    def fwd(g, cdt, impl):
-        return impl(f, *rows(g), cdt)
-
-    def adj(g, cdt, impl):
-        return (impl(p[g], *rows(g), N, cdt) if impl is ck.backproject_group
-                else impl(p[g], *rows(g), cdt))
-
+    # the card's trig tables (the tensor-core route's) against the plain builder
+    tabs = group_tables(ck, plan)
+    fwd, adj = group_calls(ck, plan, tabs, f, p)
     kernels = {
         "project_group": (fwd, ck.project_group, ck._project_group),
         "backproject_group": (adj, ck.backproject_group, ck._backproject_group),
     }
     errs = {}
     check_kernels(kernels, errs)
+    # the CUDA-core kernels with bf16 operands: the A/B baseline of phase 8
+    check_kernels({"project_group CUDA-core": (fwd, ck._project_group_cc, ck._project_group),
+                   "backproject_group CUDA-core": (adj, ck._backproject_group_cc,
+                                                   ck._backproject_group)},
+                  errs, dtypes=(torch.bfloat16,))
+    # the tensor-core kernels against the plain versions of their own
+    # tiling, which read the same (card-built) tables
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    for g in "xy":
+        rf = rel(fwd(g, bf16, ck.project_group),
+                 ck._group_forward_tc(f, tabs[g], plan.Wc, plan.Ws, g == "x"))
+        G = ck.group_adjoint_splits(Bp, N, m[f"A_{g}"], n_sms)
+        ra = rel(adj(g, bf16, ck.backproject_group),
+                 ck._group_adjoint_tc(p[g], tabs[g], plan.Wc, plan.Ws, g == "x", N, G))
+        print(f"[check] tensor-core per-angle vs its tiled plain version, group {g}: fwd "
+              f"rel {rf:.3e}, adj rel {ra:.3e} (G = {G} slices; tol 5e-3)")
+        check(rf <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "tiled plain version")
+    # another batch size, and the ragged 32² radial plan (24 spokes of 64
+    # samples: Np = 128 and 2Kp = 128 padded)
+    small_plan = build_fs_plan(RadialGeometry(image_size=32, n_spokes=24), device=dev).par_plan
+    for label, pl, B_ in (("B'=2", plan, 2), ("32² 24 spokes", small_plan, 4)):
+        N_, S_ = pl.meta["N"], pl.meta["S"]
+        tabs_ = tabs if pl is plan else group_tables(ck, pl)
+        f_ = torch.randn(B_, N_, N_, generator=gen, device=dev)
+        p_ = {g: torch.randn(B_, pl.meta[f"A_{g}"], S_, generator=gen, device=dev)
+              for g in "xy"}
+        fwd_, adj_ = group_calls(ck, pl, tabs_, f_, p_)
+        check_kernels({f"project_group {label}": (fwd_, ck.project_group, ck._project_group),
+                       f"backproject_group {label}": (adj_, ck.backproject_group,
+                                                      ck._backproject_group)}, {})
 
     # complex adjoint dot test of the fourier-slice NUFFT (conjugating products)
     fs = ops32.plan
@@ -480,18 +670,42 @@ def radial_phases(dev, card, gen):
     dot_rel = float(abs(lhs - rhs) / abs(lhs))
     print(f"[check] fs NUFFT adjoint <Ax,y> vs <x,A^H y>: rel {dot_rel:.3e} (tol 1e-5)")
     check(dot_rel < 1e-5, f"fs NUFFT adjoint test failed: {dot_rel}")
+    # bf16: A and A† round different operands, so the pair is not an exact
+    # transpose; the tensor-core pair must do no worse than the plain pair
+    dot_bf16 = {}
+    xr = torch.randn(Bp, N, N, generator=gen, device=dev)
+    for g in "xy":
+        yg = torch.randn(Bp, m[f"A_{g}"], S, generator=gen, device=dev)
+        fwd_g, adj_g = group_calls(ck, plan, tabs, xr, {g: yg})
+
+        def mismatch(impl_f, impl_a):
+            a = fwd_g(g, bf16, impl_f)
+            b = adj_g(g, bf16, impl_a)
+            lhs = torch.vdot(a.double().flatten(), yg.double().flatten())
+            rhs = torch.vdot(xr.double().flatten(), b.double().flatten())
+            return float(abs(lhs - rhs) / abs(lhs))
+
+        mk = mismatch(ck.project_group, ck.backproject_group)
+        mp = mismatch(ck._project_group, ck._backproject_group)
+        dot_bf16[g] = (mk, mp)
+        print(f"[check] radial bf16 adjoint dot test, group {g}: tensor-core pair {mk:.3e}, "
+              f"plain pair {mp:.3e} (tol 2 x plain + 1e-4)")
+        check(mk <= 2 * mp + 1e-4, f"radial bf16 dot test group {g}: {mk} vs plain {mp}")
 
     # -- 7. the radial serving path at full width ------------------------------
+    # counts from 0 before build_task: its power iteration runs the bf16
+    # operators and builds the tables
+    ck.reset_launch_counts()
     t0 = time.perf_counter()
     task = build_task(config, device=dev)
     torch.cuda.synchronize()
     print(f"[chip_smoke] build_task({config.name}) on {dev}: "
           f"{time.perf_counter() - t0:.2f} s, sigma {task.sigma:.6g}")
+    at_build = group_counts(ck)
     task.init_params(torch.Generator().manual_seed(0))
     task.model.eval()
     n_batches = 3
     data_gen = torch.Generator(device=dev).manual_seed(1234)
-    ck.reset_launch_counts()
     results = []
     with torch.inference_mode():
         for _ in range(n_batches):
@@ -501,20 +715,31 @@ def radial_phases(dev, card, gen):
             results.append((batch, recon, psnr(recon, batch["image"]),
                             ssim(recon, batch["image"])))
     torch.cuda.synchronize()
-    launches = {name: getattr(ck, name).launches for name in
-                ("project_group", "backproject_group", "project_pair_group",
-                 "backproject_pair_group")}
-    # per batch: make_batch and batch_from_images each run A + the DCF
-    # adjoint, recon_fn n_iters A and n_iters A†; every A / A† is 2 groups
+    counts = group_counts(ck)
+    launches = {name: counts[name][0] for name in counts}
+    print(f"[chip_smoke] radial main-path launches (total, tensor-core): after build_task "
+          f"{at_build}, after {n_batches} batches {counts}")
+    check(ck.project_pair_group.launches == ck.backproject_pair_group.launches == 0
+          and ck.build_pair_tables.launches == 0, "a pair kernel ran on the radial path")
+    # build_task: the power iteration's (n + 1) bf16 A†A, 2 groups each, and
+    # one table build per group. Per batch: make_batch and batch_from_images
+    # each run A + the DCF adjoint in f32, recon_fn n_iters bf16 A and A†;
+    # every A / A† is 2 groups
     n_iters = config.model.n_iters
-    expected = n_batches * 2 * (2 + n_iters)
-    print(f"[chip_smoke] radial main-path launches: {launches} (expected {expected} "
-          f"per per-angle kernel, 0 per pair kernel)")
+    n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
+    check(at_build["build_group_tables"] == (2, 0) and counts["build_group_tables"] == (2, 0),
+          "the per-angle trig tables were not built exactly once per group")
     for name in ("project_group", "backproject_group"):
-        check(launches[name] == expected,
-              f"{name}: {launches[name]} launches on the radial path, expected {expected}")
-    for name in ("project_pair_group", "backproject_pair_group"):
-        check(launches[name] == 0, f"{name} ran on the radial path")
+        tc_build = 2 * (n_power + 1)
+        check(at_build[name] == (tc_build, tc_build),
+              f"{name}: {at_build[name]} in build_task, expected {tc_build} on the tensor cores")
+        n, n_tc = (c_ - b_ for c_, b_ in zip(counts[name], at_build[name]))
+        check(n_tc == n_batches * 2 * n_iters,
+              f"{name}: {n_tc} tensor-core launches in {n_batches} batches, expected "
+              f"{n_batches * 2 * n_iters} (recon_fn)")
+        check(n - n_tc == n_batches * 2 * 2,
+              f"{name}: {n - n_tc} float32 launches in {n_batches} batches, expected "
+              f"{n_batches * 2 * 2} (synthesis, DCF adjoint)")
     all_ps, all_ss = [], []
     for i, (batch, recon, ps, ss) in enumerate(results):
         check(recon.shape == (B, N, N) and recon.dtype == torch.float32,
@@ -565,8 +790,8 @@ def radial_phases(dev, card, gen):
     A_g = m["A_x"]
     fl = sum(group_cost(Bp, N, m[f"A_{g}"], K, S)[0] for g in "xy") / 2
     nb = sum(group_cost(Bp, N, m[f"A_{g}"], K, S)[1] for g in "xy") / 2
-    Tm = torch.randn(A_g, N, 2 * K, generator=gen, device=dev).to(torch.bfloat16)
-    Fm = f.to(torch.bfloat16).reshape(1, Bp * N, N).expand(A_g, Bp * N, N).contiguous()
+    Tm = torch.randn(A_g, N, 2 * K, generator=gen, device=dev).to(bf16)
+    Fm = f.to(bf16).reshape(1, Bp * N, N).expand(A_g, Bp * N, N).contiguous()
     mm_ms = cuda_ms(lambda: torch.matmul(Fm, Tm))
     print(f"[time] yardstick: bf16 torch.matmul of per-angle stage 1's shape "
           f"({A_g} x [{Bp * N}x{N}] @ [{N}x{2 * K}]): {mm_ms:.4f} ms ({card})")
@@ -576,21 +801,100 @@ def radial_phases(dev, card, gen):
         "backproject_group": "pdunet_tpu/ops/radon/pallas_kernels.py:308",
     }
     entries = time_kernels(kernels, errs, launches, (fl, nb),
-                           "pdunet_tpu_torch/ops/radon/csrc/radon_group.cu", replaces,
+                           "pdunet_tpu_torch/ops/radon/csrc/radon_group_tc.cu", replaces,
                            mm_ms, card)
+
+    def group_inputs(B_):
+        fwd_, adj_ = group_calls(
+            ck, plan, tabs, torch.randn(B_, N, N, generator=gen, device=dev),
+            {g: torch.randn(B_, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"})
+        return {"project_group": fwd_, "backproject_group": adj_}
+
+    def group_mean_cost(B_):
+        costs = [group_cost(B_, N, m[f"A_{g}"], K, S) for g in "xy"]
+        return sum(c_[0] for c_ in costs) / 2, sum(c_[1] for c_ in costs) / 2
+
+    # B' = 8: the serving shape at batch 4; B' = 256: bench's batch 128
+    ab = route_ab({"project_group": (ck.project_group, ck._project_group_cc),
+                   "backproject_group": (ck.backproject_group, ck._backproject_group_cc)},
+                  group_inputs, group_mean_cost, lambda B_: (A_g, B_ * N, N, 2 * K), card,
+                  (Bp, 256), dev, gen)
+    for e in entries:
+        op = e["name"]
+        e["ms_eager"] = e["ms"]
+        e.update(ab[op])
+        e["ms"] = ab[op][f"ms_tc_b{Bp}"]
+        e["launches_tc"] = counts[op][1]
+        e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_group.cu"
+        e["path"] = "pdunet_radial (B' = 2 x batch real images per group call)"
+        e["operand_dtype"] = ("bfloat16 on tensor cores (f32 keys *_f32: CUDA-core "
+                              "route; *_cc_*: CUDA-core bf16 A/B baseline)")
+    entries.append(table_entry(
+        ck.build_group_tables, ck._group_tables,
+        (plan.pos_x, plan.shift_x, plan.spec, L), launches["build_group_tables"],
+        "pdunet_tpu/ops/radon/pallas_kernels.py:99",
+        "once per plan and angle group (pdunet_radial: in build_task)", card))
 
     def one_recon():
         with torch.inference_mode():
             task.recon_fn(task.model, batch)
 
-    recon_s = recon_rate(one_recon, B, card, config.name)
+    # the adjoint's slice count at B' = 8 (group_adjoint_splits' choice
+    # among them)
+    group_sweep = split_sweep(
+        ck, "group_adjoint_splits", lambda g: adj(g, bf16, ck.backproject_group),
+        Bp * -(-N // 128) * -(-N // 256), (4, 8, 9, 16, 17, 33),
+        f"backproject_group bf16 B={Bp}", card)
+
+    # each group call by kernel: the share of stages 3 / 3ᵀ beside the products
+    shares = {}
+    for B_ in (Bp, 256):
+        calls = group_inputs(B_)
+        for op, impl in (("project_group", ck.project_group),
+                         ("backproject_group", ck.backproject_group)):
+            shares[f"{op}_b{B_}"] = call_profile(
+                lambda call=calls[op], impl=impl: call("x", bf16, impl),
+                f"{op} bf16 B={B_} group x", card)
+        del calls
+
+    # the whole recon on each bf16 route, in turns, and the host's share
+    recon_turns = {}
+    for key in ("tc", "cc", "cc", "tc"):
+        with cc_route(ck) if key == "cc" else contextlib.nullcontext():
+            recon_turns.setdefault(key, []).append(
+                recon_rate(one_recon, B, card, f"{config.name} ({key} per-angle route)"))
+    recon_s = sum(recon_turns["tc"]) / 2
+    enqueue_ms = host_ms(one_recon)
+    print(f"[time] {config.name} recon_fn at batch {B}: tensor-core route "
+          f"{recon_s * 1e3:.3f} ms, CUDA-core route {sum(recon_turns['cc']) / 2 * 1e3:.3f} ms "
+          f"per batch (turns {recon_turns}); host time to enqueue one recon "
+          f"{enqueue_ms:.3f} ms ({card})")
     synth_ms = cuda_ms(lambda: task.batch_from_images(batch["image_c"]), iters=10)
     print(f"[time] radial batch_from_images (f32 A + DCF adjoint) at batch {B}: "
           f"{synth_ms:.4f} ms ({card})")
     profile_recon(one_recon, card)
+    with cc_route(ck):
+        print("[profile] the same recon with the per-angle bf16 calls on the CUDA cores:")
+        profile_recon(one_recon, card)
+
+    # σ of build_task's power iteration on the bf16 operators, on each route
+    ops_bf16 = make_radial_ops(sparse, dtype=bf16, device=dev)
+    sigmas = {}
+    for key in ("tc", "cc"):
+        with cc_route(ck) if key == "cc" else contextlib.nullcontext():
+            sigmas[key] = estimate_opnorm(ops_bf16.A, ops_bf16.At, (N, N), device=dev,
+                                          is_complex=True)
+    sigma_rel = abs(sigmas["tc"] - sigmas["cc"]) / sigmas["cc"]
+    print(f"[check] radial sigma (power iteration, bf16 operators): tensor cores "
+          f"{sigmas['tc']:.6g}, CUDA cores {sigmas['cc']:.6g}, rel {sigma_rel:.3e} (tol 5e-3)")
+    check(sigma_rel <= TOL["bfloat16"], "radial sigma moved beyond the bf16 tolerance")
     stats = {"recon_slices_per_s": B / recon_s, "recon_ms_per_batch": recon_s * 1e3,
              "synth_ms": synth_ms, "batch": B, "psnr_mean": float(np.mean(all_ps)),
              "ssim_mean": float(np.mean(all_ss)), "adjoint_dot_rel": dot_rel,
+             "recon_ms_turns": {k: [v * 1e3 for v in vs] for k, vs in recon_turns.items()},
+             "host_enqueue_ms": enqueue_ms, "call_profile_ms": shares,
+             "adjoint_split_sweep_b8": group_sweep,
+             "bf16_dot_test": dot_bf16, "sigma": task.sigma, "sigma_routes": sigmas,
              "sino_rel_cpu": sino_rel, "f0_rel_cpu": f0_rel, "small_rel_cpu": small_rel}
     return entries, stats
 
@@ -737,7 +1041,6 @@ def probe_phases(dev, card, gen):
 def bench_phase(card):
     """Phase 12: bench's headline path on the card at batch 32 (the full
     batch-256 headline is a separate run); counts from 0 around it."""
-    import contextlib
     import io
 
     from pdunet_tpu_torch import bench
@@ -795,10 +1098,13 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[chip_smoke] built {sorted(logs)} in {build_s:.2f} s")
-    hgmma = hgmma_counts(_build.build("radon_pair_tc"), TC_KERNELS)
-    print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu: {hgmma}")
-    for name in ("pair_tc_fwd", "pair_tc_adj"):
-        check(hgmma[name] > 0, f"{name} (stage 1 / 1ᵀ) has no HGMMA instruction")
+    hgmma = {**hgmma_counts(_build.build("radon_pair_tc"), TC_KERNELS),
+             **hgmma_counts(_build.build("radon_group_tc"), GROUP_TC_KERNELS)}
+    print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu and "
+          f"radon_group_tc.cu: {hgmma}")
+    for name in ("pair_tc_fwd", "pair_tc_adj", "group_tc_fwd", "group_tc_adj",
+                 "group_tc_fwd_stage3", "group_tc_adj_stage3t"):
+        check(hgmma[name] > 0, f"{name} (a tensor-core product) has no HGMMA instruction")
 
     from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.data.synth import random_phantom_batch
@@ -828,18 +1134,8 @@ def main():
     p = {g: torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
 
     # the card's trig tables (the tensor-core route's) against the plain builder
-    tabs, tab_err = {}, 0.0
-    for g in "xy":
-        r = pair_rows(plan, g)
-        tabs[g] = ck.build_pair_tables(*r[:3], plan.spec, L)
-        ref = ck._pair_tables(*r[:3], plan.spec, L)
-        torch.cuda.synchronize()
-        rt = rel(tabs[g].float(), ref.float())
-        mae = float((tabs[g].float() - ref.float()).abs().max())
-        tab_err = max(tab_err, mae)
-        print(f"[check] trig tables group {g}: {tuple(tabs[g].shape)} bf16 vs plain builder: "
-              f"rel {rt:.3e} max_abs {mae:.3e} (tol 5e-3)")
-        check(rt <= TOL["bfloat16"], f"trig tables group {g}: rel {rt}")
+    tabs = check_tables(ck.build_pair_tables, ck._pair_tables,
+                        {g: (*pair_rows(plan, g)[:3], plan.spec, L) for g in "xy"})
 
     fwd, adj = pair_calls(ck, plan, tabs, f, p)
     kernels = {
@@ -1016,7 +1312,23 @@ def main():
     entries = time_kernels(kernels, errs, launches, (fl, nb),
                            "pdunet_tpu_torch/ops/radon/csrc/radon_pair_tc.cu", replaces,
                            mm_ms, card)
-    ab = pair_ab(ck, plan, tabs, gen, card, (B, 256))
+    def pair_inputs(B_):
+        fwd_, adj_ = pair_calls(
+            ck, plan, tabs, torch.randn(B_, N, N, generator=gen, device=dev),
+            {g: torch.randn(B_, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"})
+        return {"project_pair_group": fwd_, "backproject_pair_group": adj_}
+
+    ab = route_ab({"project_pair_group": (ck.project_pair_group, ck._project_pair_cc),
+                   "backproject_pair_group": (ck.backproject_pair_group,
+                                              ck._backproject_pair_cc)},
+                  pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
+                  lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen)
+    # the adjoint's slice count at B = 4 (pair_adjoint_splits picks
+    # ⌈n_sms / tiles⌉, capped at P)
+    pair_sweep = split_sweep(
+        ck, "pair_adjoint_splits", lambda g: adj(g, torch.bfloat16, ck.backproject_pair_group),
+        B * -(-N // 128) * -(-N // 256), (8, 16, 17, 23), f"backproject_pair_group bf16 B={B}",
+        card)
     for e in entries:
         op = e["name"]
         # "ms" is the device time of the route the main path takes; the
@@ -1029,7 +1341,10 @@ def main():
         e["hgmma"] = hgmma["pair_tc_fwd" if op == "project_pair_group" else "pair_tc_adj"]
         e["operand_dtype"] = ("bfloat16 on tensor cores (f32 keys *_f32: CUDA-core "
                               "route; *_cc_*: CUDA-core bf16 A/B baseline)")
-    entries.append(table_entry(ck, plan, tab_err, launches["build_pair_tables"], card))
+    entries.append(table_entry(
+        ck.build_pair_tables, ck._pair_tables, (*pair_rows(plan, "x")[:3], plan.spec, L),
+        launches["build_pair_tables"], "pdunet_tpu/ops/radon/pallas_kernels.py:167",
+        "once per plan and angle group (pdunet_parallel: in build_task)", card))
 
     def one_recon():
         with torch.inference_mode():
@@ -1041,6 +1356,9 @@ def main():
     profile_recon(one_recon, card)
 
     radial_entries, radial_stats = radial_phases(dev, card, gen)
+    for e in radial_entries:
+        if e["name"] in ("project_group", "backproject_group"):
+            e["hgmma"] = hgmma["group_tc_fwd" if e["name"] == "project_group" else "group_tc_adj"]
     probe_entries = probe_phases(dev, card, gen)
     bench_row = bench_phase(card)
 
@@ -1051,6 +1369,7 @@ def main():
                       "recon_ms_per_batch": recon_s * 1e3, "batch": B,
                       "radial": radial_stats, "bench_headline_b32": bench_row,
                       "bf16_dot_test": dot_bf16, "hgmma": hgmma,
+                      "pair_adjoint_split_sweep_b4": pair_sweep,
                       "build_s": build_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

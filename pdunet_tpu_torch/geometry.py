@@ -124,9 +124,11 @@ class ParallelPlan:
         for name, arr in zip(self.ARRAY_FIELDS, arrays):
             setattr(self, name, arr)
         self._index = {}
-        # the pair kernels' trig tables by angle group, made at first use
-        # (ops/radon/parallel.py)
+        # the tensor-core kernels' trig tables by angle group, made at first
+        # use (ops/radon/parallel.py): the pair kernels' and the per-angle
+        # kernels'
         self.pair_tables = {}
+        self.group_tables = {}
 
     def index(self, name: str) -> torch.Tensor:
         """``meta[name]`` (a tuple of row indices) as a long tensor on the

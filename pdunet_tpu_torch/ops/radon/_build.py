@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, at first use,
 into ``pdunet_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is of the
-source, so an edited kernel is rebuilt). Build or load failures raise.
+source and the ``csrc/*.cuh`` headers it includes, so an edited kernel or
+header is rebuilt). Build or load failures raise.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,7 @@ __all__ = ["SOURCES", "build", "build_all", "load_library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("radon_pair", "radon_pair_tc", "radon_group", "radon_proto")
+SOURCES = ("radon_pair", "radon_pair_tc", "radon_group", "radon_group_tc", "radon_proto")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,10 +46,16 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found on PATH or in /usr/local/cuda/bin")
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
+
+
 def _target(name: str) -> tuple:
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    text = src.read_bytes()
+    h = hashlib.sha256(text)
+    for header in sorted(_INCLUDE.findall(text)):
+        h.update((_CSRC / header.decode()).read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -11,9 +11,13 @@ Two families replace the Pallas kernels of
   plan's trig from tables that :func:`build_pair_tables` makes once per
   plan and group (the caller, ``parallel.py``, owns and passes them);
 * per-angle, ``project_group`` / ``backproject_group``
-  (``project_group_pallas`` / ``backproject_group_pallas``), kernels in
-  ``csrc/radon_group.cu``, for plans whose angles do not pair (golden-angle
-  spokes, the radial fourier-slice NUFFT).
+  (``project_group_pallas`` / ``backproject_group_pallas``), for plans whose
+  angles do not pair (golden-angle spokes, the radial fourier-slice NUFFT),
+  with the same two routes: float32 operands run the CUDA-core kernels of
+  ``csrc/radon_group.cu``; bf16 operands the tensor-core kernels of
+  ``csrc/radon_group_tc.cu``, which read the tables of
+  :func:`build_group_tables` (one member per angle of the pair machinery
+  in ``csrc/radon_tc.cuh``).
 
 For a CUDA tensor each wrapper launches its hand-written kernel (and raises
 if it cannot); for a CPU tensor it runs the plain version below, which is
@@ -25,9 +29,10 @@ f64 for a float64 input on the CPU, which ``gradcheck`` uses); with
 ``cdt=torch.bfloat16`` the operands T̂, φ, f or p, W and Ŝ (or h) are
 rounded to bf16 where the twin casts them, and every sum accumulates in f32.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
-pair wrappers also count their tensor-core launches in ``.launches_tc``,
-and :func:`build_pair_tables` its table builds. A CPU call does not count.
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` and its
+tensor-core launches in ``.launches_tc``; :func:`build_pair_tables` and
+:func:`build_group_tables` count their table builds. A CPU call does not
+count.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch
 
 __all__ = ["project_pair_group", "backproject_pair_group", "build_pair_tables",
            "pair_adjoint_splits", "project_group", "backproject_group",
-           "reset_launch_counts"]
+           "build_group_tables", "group_adjoint_splits", "reset_launch_counts"]
 
 
 def _q(x: torch.Tensor, cdt) -> torch.Tensor:
@@ -149,20 +154,65 @@ def _tc_dims(N: int, K: int) -> tuple:
             _TC_FREQ_PAD * math.ceil(2 * K / _TC_FREQ_PAD))
 
 
+def _tc_pad(n: int) -> int:
+    """n rounded up to a whole 128-row (or 128-column) tensor-core tile."""
+    return _TC_ROWS * math.ceil(n / _TC_ROWS)
+
+
+def _interleave(trig, cdt):
+    """(re, im) pairs of (P, N, K) trig tensors as one (len(trig)/2, P, Np,
+    2Kp) table with (re, im) interleaved along the frequency axis and zeros
+    in the padding; bf16 for ``cdt=torch.bfloat16``, else the working dtype."""
+    P, N, K = trig[0].shape
+    Np, K2p = _tc_dims(N, K)
+    tab = trig[0].new_zeros(len(trig) // 2, P, Np, K2p)
+    for t in range(len(trig) // 2):
+        tab[t, :, :N, 0:2 * K:2] = trig[2 * t]
+        tab[t, :, :N, 1:2 * K:2] = trig[2 * t + 1]
+    return tab.to(torch.bfloat16) if cdt == torch.bfloat16 else tab
+
+
 def _pair_tables(pos, sha, shb, spec, L, cdt=torch.bfloat16):
     """Plain version of :func:`build_pair_tables`: the six (P, N, K) trig
     tensors of :func:`_pair_spectral_tensors` as one (3, P, Np, 2Kp) table,
-    [T̂, φ_a, φ_b] with (re, im) interleaved along the frequency axis and
-    zeros in the padding; bf16 for ``cdt=torch.bfloat16``, else the
-    working dtype."""
-    Tc, Ts, PcA, PsA, PcB, PsB = _pair_spectral_tensors(pos, sha, shb, spec, L, cdt)
-    P, N, K = Tc.shape
-    Np, K2p = _tc_dims(N, K)
-    tab = torch.zeros(3, P, Np, K2p, dtype=pos.dtype, device=pos.device)
-    for t, (re, im) in enumerate(((Tc, Ts), (PcA, PsA), (PcB, PsB))):
-        tab[t, :, :N, 0:2 * K:2] = re
-        tab[t, :, :N, 1:2 * K:2] = im
-    return tab.to(torch.bfloat16) if cdt == torch.bfloat16 else tab
+    [T̂, φ_a, φ_b] (layout of :func:`_interleave`)."""
+    return _interleave(_pair_spectral_tensors(pos, sha, shb, spec, L, cdt), cdt)
+
+
+def _padded_image(f, Np: int, contract_x: bool, cdt):
+    """F rounded to ``cdt`` and zero-padded to (B, Np, Np): f for the x
+    group, its transpose for the y group (the forward's A operand)."""
+    B, N, _ = f.shape
+    Fp = f.new_zeros(B, Np, Np)
+    Fp[:, :N, :N] = _q(f if contract_x else f.transpose(1, 2), cdt)
+    return Fp
+
+
+def _tile_sum(part):
+    """Σ over dim 0 in index order (the kernels' fixed reduction order)."""
+    out = part[0]
+    for t in range(1, part.shape[0]):
+        out = out + part[t]
+    return out
+
+
+def _depth_gemm(h, T, N: int, G: int, contract_x: bool, cdt):
+    """Stage 1ᵀ of the tensor-core adjoints: h (B, P, Np, 2Kp) rounded to
+    ``cdt`` against the T̂ table (P, Np, 2Kp), depth (row group, k, re/im)
+    flattened; slice g takes 64-deep chunks [n·g/G, n·(g+1)/G) of the
+    n = P·2Kp/64, and the G partial images are summed in slice order. The
+    y group's image comes back transposed."""
+    B, P, Np, K2p = h.shape
+    hd = _q(h, cdt).permute(0, 2, 1, 3).reshape(B, Np, P * K2p)
+    td = T.permute(0, 2, 1).reshape(P * K2p, Np)
+    n = P * K2p // _TC_DEPTH
+    out = None
+    for g in range(G):
+        lo, hi = n * g // G * _TC_DEPTH, n * (g + 1) // G * _TC_DEPTH
+        part = hd[:, :, lo:hi] @ td[lo:hi]
+        out = part if out is None else out + part
+    out = out[:, :N, :N]
+    return (out if contract_x else out.transpose(1, 2)).contiguous()
 
 
 def _pair_forward_tc(f, tab, sgn, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
@@ -175,8 +225,7 @@ def _pair_forward_tc(f, tab, sgn, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
     K = Wc.shape[0]
     R = Np // _TC_ROWS
     t = tab.to(f.dtype)
-    Fp = f.new_zeros(B, Np, Np)
-    Fp[:, :N, :N] = _q(f if contract_x else f.transpose(1, 2), cdt)
+    Fp = _padded_image(f, Np, contract_x, cdt)
     g = torch.einsum("brc,pcn->bprn", Fp, t[0])              # (B, P, Np, 2Kp)
     gr = g[..., 0::2].reshape(B, P, R, _TC_ROWS, -1)
     gi = g[..., 1::2].reshape(B, P, R, _TC_ROWS, -1)
@@ -185,10 +234,7 @@ def _pair_forward_tc(f, tab, sgn, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
                       for m in (1, 2) for ri in (0, 1))
     part = torch.stack([(gr * ca - gi * sa).sum(3), (gr * sa + gi * ca).sum(3),
                         (gr * cb - gib * sb).sum(3), (gr * sb + gib * cb).sum(3)])
-    shat = part[:, :, :, 0]
-    for rt in range(1, R):
-        shat = shat + part[:, :, :, rt]
-    shat = _q(shat[..., :K], cdt)                            # (4, B, P, K)
+    shat = _q(_tile_sum(part.movedim(3, 0))[..., :K], cdt)  # (4, B, P, K)
     Wc, Ws = _q(Wc, cdt), _q(Ws, cdt)
     out = torch.stack([shat[2 * m] @ Wc - shat[2 * m + 1] @ Ws for m in (0, 1)], dim=2)
     return out.reshape(B, 2 * P, -1)
@@ -218,18 +264,7 @@ def _pair_adjoint_tc(p, tab, sgn, msk, Wc, Ws, contract_x: bool, N: int, G: int,
     h = torch.empty(B, P, Np, K2p, dtype=p.dtype, device=p.device)
     h[..., 0::2] = (sra * ca + sia * sa) + (srb * cb + sib * sb)
     h[..., 1::2] = (-(sra * sa) + sia * ca) + sg * (-(srb * sb) + sib * cb)
-    # depth (pair, k, re/im) flattened; slice g takes 64-deep chunks
-    # [n·g/G, n·(g+1)/G) of the n = P·2Kp/64
-    hd = _q(h, cdt).permute(0, 2, 1, 3).reshape(B, Np, P * K2p)
-    td = t[0].permute(0, 2, 1).reshape(P * K2p, Np)
-    n = P * K2p // _TC_DEPTH
-    out = None
-    for g in range(G):
-        lo, hi = n * g // G * _TC_DEPTH, n * (g + 1) // G * _TC_DEPTH
-        part = hd[:, :, lo:hi] @ td[lo:hi]
-        out = part if out is None else out + part
-    out = out[:, :N, :N]
-    return (out if contract_x else out.transpose(1, 2)).contiguous()
+    return _depth_gemm(h, t[0], N, G, contract_x, cdt)
 
 
 def _spectral_tensors(pos, shift, spec, L, cdt=torch.float32):
@@ -242,6 +277,54 @@ def _spectral_tensors(pos, shift, spec, L, cdt=torch.float32):
     Ts = _q(-spec * torch.sin(ang_t), cdt)
     ang_p = shift[:, :, None] * k[None, None, :]
     return Tc, Ts, _q(torch.cos(ang_p), cdt), _q(torch.sin(ang_p), cdt)
+
+
+def _group_tables(pos, shift, spec, L, cdt=torch.bfloat16):
+    """Plain version of :func:`build_group_tables`: the four (A, N, K) trig
+    tensors of :func:`_spectral_tensors` as one (2, A, Np, 2Kp) table,
+    [T̂, φ] (layout of :func:`_interleave`)."""
+    return _interleave(_spectral_tensors(pos, shift, spec, L, cdt), cdt)
+
+
+def _group_forward_tc(f, tab, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
+    """The per-angle tensor-core forward's arithmetic in its order, from the
+    tables (:func:`_pair_forward_tc` with one member per angle). Equals
+    :func:`_project_group` up to f32 summation order."""
+    B, N, _ = f.shape
+    _, A, Np, K2p = tab.shape
+    K = Wc.shape[0]
+    R = Np // _TC_ROWS
+    t = tab.to(f.dtype)
+    g = torch.einsum("brc,acn->barn", _padded_image(f, Np, contract_x, cdt), t[0])
+    gr = g[..., 0::2].reshape(B, A, R, _TC_ROWS, -1)
+    gi = g[..., 1::2].reshape(B, A, R, _TC_ROWS, -1)
+    c, s = (t[1][..., ri::2].reshape(A, R, _TC_ROWS, -1) for ri in (0, 1))
+    part = torch.stack([(gr * c - gi * s).sum(3), (gr * s + gi * c).sum(3)])
+    shat = _q(_tile_sum(part.movedim(3, 0))[..., :K], cdt)  # (2, B, A, K)
+    return shat[0] @ _q(Wc, cdt) - shat[1] @ _q(Ws, cdt)
+
+
+def _group_adjoint_tc(p, tab, Wc, Ws, contract_x: bool, N: int, G: int,
+                      cdt=torch.bfloat16):
+    """The per-angle tensor-core adjoint's arithmetic in its order, from the
+    tables: Ŝ = Wᵀ p rounded, h = Ŝ·conj(φ) built per (angle, k) and
+    rounded, one GEMM over (angle, k, re/im) per slice of
+    :func:`group_adjoint_splits`, the G partial images summed in slice
+    order. Equals :func:`_backproject_group` up to f32 summation order."""
+    B, A, S = p.shape
+    _, _, Np, K2p = tab.shape
+    K = Wc.shape[0]
+    t = tab.to(p.dtype)
+    pq = _q(p, cdt)
+    shat = p.new_zeros(B, A, 1, K2p // 2, 2)
+    shat[:, :, 0, :K, 0] = _q(pq @ _q(Wc, cdt).T, cdt)
+    shat[:, :, 0, :K, 1] = _q(-(pq @ _q(Ws, cdt).T), cdt)
+    sr, si = shat[..., 0], shat[..., 1]                       # (B, A, 1, Kp)
+    c, s = t[1][None, ..., 0::2], t[1][None, ..., 1::2]       # (1, A, Np, Kp)
+    h = torch.empty(B, A, Np, K2p, dtype=p.dtype, device=p.device)
+    h[..., 0::2] = sr * c + si * s
+    h[..., 1::2] = -(sr * s) + si * c
+    return _depth_gemm(h, t[0], N, G, contract_x, cdt)
 
 
 def _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
@@ -299,6 +382,9 @@ _ARGTYPES = {
     "radon_pair_tc_backproject": [_P] * 9 + [_I] * 9 + [_P],
     "radon_group_project": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_group_backproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+    "radon_group_tc_tables": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "radon_group_tc_project": [_P] * 9 + [_I] * 9 + [_P],
+    "radon_group_tc_backproject": [_P] * 9 + [_I] * 10 + [_P],
 }
 
 
@@ -352,18 +438,22 @@ def _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev):
     _check("Ws", Ws, (K, S), dev)
 
 
-def _check_tables(tables, P, N, K, dev):
+def _check_tables(tables, n_tab, P, N, K, dev):
+    """The tensor-core route's tables: (n_tab, P, Np, 2Kp) bf16 on ``dev``
+    (3 for pairs, :func:`build_pair_tables`; 2 per angle,
+    :func:`build_group_tables`)."""
     if tables is None:
-        raise ValueError("a CUDA bf16 pair call needs the plan's trig tables "
-                         "(build_pair_tables of the same pos/sha/shb rows)")
+        builder = "build_pair_tables" if n_tab == 3 else "build_group_tables"
+        raise ValueError(f"a CUDA bf16 projector call needs the plan's trig tables "
+                         f"({builder} of the same plan rows)")
     Np, K2p = _tc_dims(N, K)
     if tables.device != dev:
         raise ValueError(f"tables are on {tables.device}, expected {dev}")
     if tables.dtype != torch.bfloat16:
         raise TypeError(f"tables must be bfloat16, got {tables.dtype}")
-    if tuple(tables.shape) != (3, P, Np, K2p):
+    if tuple(tables.shape) != (n_tab, P, Np, K2p):
         raise ValueError(f"tables have shape {tuple(tables.shape)}, "
-                         f"expected {(3, P, Np, K2p)}")
+                         f"expected {(n_tab, P, Np, K2p)}")
     if not tables.is_contiguous() or tables.data_ptr() % 16:
         raise ValueError("tables must be contiguous and 16-byte aligned")
 
@@ -481,7 +571,7 @@ def project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     B, N, _ = f.shape
     P = pos.shape[0]
     dev = f.device
-    _check_tables(tables, P, N, K, dev)
+    _check_tables(tables, 3, P, N, K, dev)
     _check("f", f, (B, N, N), dev)
     _check_pair_plan(pos, sha, shb, sgn, None, spec, Wc, Ws, P, N, K, S, dev)
     Np, K2p = _tc_dims(N, K)
@@ -518,7 +608,7 @@ def backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
     B = p.shape[0]
     P = pos.shape[0]
     dev = p.device
-    _check_tables(tables, P, N, K, dev)
+    _check_tables(tables, 3, P, N, K, dev)
     _check("p", p, (B, 2 * P, S), dev)
     _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev)
     Np, K2p = _tc_dims(N, K)
@@ -546,16 +636,11 @@ def _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev):
     _check("Ws", Ws, (K, S), dev)
 
 
-def project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
-                  cdt=torch.float32):
-    """Fused per-angle forward for one angle group:
-    f (B,N,N) → (B, A_g, S) float32. K and S are read off ``Wc``; no
-    relation between K and L is assumed.
-
-    CPU tensors run :func:`_project_group`; CUDA tensors launch the kernel
-    of ``csrc/radon_group.cu``."""
-    if f.device.type == "cpu":
-        return _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+def _project_group_cc(f, pos, shift, spec, Wc, Ws, L, contract_x: bool, cdt):
+    """The CUDA-core kernel of ``csrc/radon_group.cu``: the float32 route of
+    :func:`project_group`; with bf16 operands only an A/B baseline
+    (``chip_smoke.py``, ``scripts/pack_proto.py``) that no dispatch
+    reaches. K and S are read off ``Wc``."""
     _check_device(f)
     bf16 = _compute_flag(cdt)
     K, S = Wc.shape
@@ -571,7 +656,6 @@ def project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
                 f.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
                 Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(), out.data_ptr(),
                 B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
-    project_group.launches += 1
     return out
 
 
@@ -580,22 +664,17 @@ _GROUP_ADJ_TILE = 64
 
 
 def adjoint_splits(B: int, N: int, A: int, n_sms: int) -> int:
-    """How many angle slices the per-angle adjoint splits its angle loop
-    into, so that about four blocks per SM are in flight; each slice writes
-    a partial image and a second pass sums them in a fixed order."""
+    """How many angle slices the per-angle CUDA-core adjoint splits its
+    angle loop into, so that about four blocks per SM are in flight; each
+    slice writes a partial image and a second pass sums them in a fixed
+    order."""
     blocks = B * math.ceil(N / _GROUP_ADJ_TILE) ** 2
     return max(1, min(A, math.ceil(4 * n_sms / blocks)))
 
 
-def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
-                      cdt=torch.float32):
-    """Fused per-angle adjoint for one angle group:
-    p (B, A_g, S) → (B, N, N) float32, the y group already transposed.
-
-    CPU tensors run :func:`_backproject_group`; CUDA tensors launch the
-    kernel of ``csrc/radon_group.cu``."""
-    if p.device.type == "cpu":
-        return _backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+def _backproject_group_cc(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int, cdt):
+    """The CUDA-core adjoint of ``csrc/radon_group.cu`` (see
+    :func:`_project_group_cc`)."""
     _check_device(p)
     bf16 = _compute_flag(cdt)
     K, S = Wc.shape
@@ -614,15 +693,136 @@ def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
                 Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
                 None if part is None else part.data_ptr(), out.data_ptr(),
                 B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16)
+    return out
+
+
+def build_group_tables(pos, shift, spec, L):
+    """The per-angle tensor-core route's trig tables of one angle group:
+    (2, A, Np, 2Kp) bf16, [T̂, φ] with (re, im) interleaved along the
+    frequency axis, Np = 128·⌈N/128⌉, 2Kp = 128·⌈2K/128⌉, zero-padded (layout
+    of :func:`_group_tables`). K is read off ``spec``. CPU tensors run
+    :func:`_group_tables`; CUDA tensors launch the kernel of
+    ``csrc/radon_group_tc.cu``, which forms each value with the CUDA-core
+    kernels' arithmetic."""
+    if pos.device.type == "cpu":
+        return _group_tables(pos, shift, spec, L)
+    _check_device(pos)
+    A, N = pos.shape
+    K = spec.shape[0]
+    dev = pos.device
+    for name, t in (("pos", pos), ("shift", shift)):
+        _check(name, t, (A, N), dev)
+    _check("spec", spec, (K,), dev)
+    Np, K2p = _tc_dims(N, K)
+    tab = torch.empty((2, A, Np, K2p), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_group_tc_tables", pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
+                tab.data_ptr(), A, N, Np, K, K2p // 2, 2.0 * math.pi / L)
+    build_group_tables.launches += 1
+    return tab
+
+
+def group_adjoint_splits(B: int, N: int, A: int, n_sms: int) -> int:
+    """How many slices the per-angle tensor-core adjoint splits its depth
+    (the angles' 64-deep chunks of (k, re/im), in order) into: as many as
+    its (128-row x 256-column) output tiles times the slices fit in one wave
+    of one block per SM, so that no second, part-empty wave runs; never
+    more slices than angles. Each slice writes a partial image, summed in
+    slice order."""
+    tiles = B * math.ceil(N / _TC_ROWS) * math.ceil(N / _TC_ADJ_COLS)
+    return max(1, min(A, n_sms // tiles))
+
+
+def project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                  cdt=torch.float32, tables=None):
+    """Fused per-angle forward for one angle group:
+    f (B,N,N) → (B, A_g, S) float32. K and S are read off ``Wc``; no
+    relation between K and L is assumed.
+
+    CPU tensors run :func:`_project_group`. CUDA tensors launch, with
+    float32 operands, the CUDA-core kernel of ``csrc/radon_group.cu``; with
+    bf16 operands the tensor-core kernels of ``csrc/radon_group_tc.cu``,
+    which read ``tables`` (:func:`build_group_tables` of the same rows) and
+    raise without them."""
+    if f.device.type == "cpu":
+        return _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+    _check_device(f)
+    if not _compute_flag(cdt):
+        out = _project_group_cc(f, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+        project_group.launches += 1
+        return out
+    K, S = Wc.shape
+    B, N, _ = f.shape
+    A = pos.shape[0]
+    dev = f.device
+    _check_tables(tables, 2, A, N, K, dev)
+    _check("f", f, (B, N, N), dev)
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    Np, K2p = _tc_dims(N, K)
+    Sp = _tc_pad(S)
+    bf16 = torch.bfloat16
+    out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
+    fb = torch.empty((B, Np, Np), dtype=bf16, device=dev)
+    part = torch.empty((Np // _TC_ROWS, B, A, K, 2), dtype=torch.float32, device=dev)
+    sb = torch.empty((_tc_pad(B * A), K2p), dtype=bf16, device=dev)
+    wb = torch.empty((K2p, Sp), dtype=bf16, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_group_tc_project",
+                f.data_ptr(), tables.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
+                fb.data_ptr(), part.data_ptr(), sb.data_ptr(), wb.data_ptr(), out.data_ptr(),
+                B, N, Np, A, K, K2p // 2, S, Sp, int(contract_x))
+    project_group.launches += 1
+    project_group.launches_tc += 1
+    return out
+
+
+def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
+                      cdt=torch.float32, tables=None):
+    """Fused per-angle adjoint for one angle group:
+    p (B, A_g, S) → (B, N, N) float32, the y group already transposed.
+
+    CPU tensors run :func:`_backproject_group`; CUDA tensors take the routes
+    of :func:`project_group`."""
+    if p.device.type == "cpu":
+        return _backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
+    _check_device(p)
+    if not _compute_flag(cdt):
+        out = _backproject_group_cc(p, pos, shift, spec, Wc, Ws, L, contract_x, N, cdt)
+        backproject_group.launches += 1
+        return out
+    K, S = Wc.shape
+    B, A, _ = p.shape
+    dev = p.device
+    _check_tables(tables, 2, A, N, K, dev)
+    _check("p", p, (B, A, S), dev)
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    Np, K2p = _tc_dims(N, K)
+    G = group_adjoint_splits(B, N, A,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+    Sp = _tc_pad(S)
+    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    pb = torch.empty((_tc_pad(B * A), Sp), dtype=torch.bfloat16, device=dev)
+    wb = torch.empty((K2p, Sp), dtype=torch.bfloat16, device=dev)
+    shat = torch.empty((B, A, K2p // 2, 2), dtype=torch.float32, device=dev)
+    part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
+            if G > 1 else None)
+    with torch.cuda.device(dev):
+        _launch("radon_group_tc_backproject",
+                p.data_ptr(), tables.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
+                pb.data_ptr(), wb.data_ptr(), shat.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                B, N, Np, A, K, K2p // 2, S, Sp, G, int(contract_x))
     backproject_group.launches += 1
+    backproject_group.launches_tc += 1
     return out
 
 
 def reset_launch_counts():
     for fn in (project_pair_group, backproject_pair_group, build_pair_tables,
-               project_group, backproject_group):
+               project_group, backproject_group, build_group_tables):
         fn.launches = 0
-    project_pair_group.launches_tc = backproject_pair_group.launches_tc = 0
+    for fn in (project_pair_group, backproject_pair_group, project_group, backproject_group):
+        fn.launches_tc = 0
 
 
 reset_launch_counts()

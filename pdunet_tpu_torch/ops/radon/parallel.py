@@ -8,10 +8,11 @@ kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
 Each pair is an exact transpose, so ``make_parallel_ops`` pairs them as
 each other's gradient.
 
-With bf16 operands on a CUDA tensor the pair kernels run on the tensor
-cores and read the plan's trig tables (``build_pair_tables``), built on the
-card at the plan's first such call, one per angle group, and kept on the
-plan for every later call.
+With bf16 operands on a CUDA tensor both kernel families run on the tensor
+cores and read the plan's trig tables (``build_pair_tables`` into
+``plan.pair_tables``, ``build_group_tables`` into ``plan.group_tables``),
+built on the card at the plan's first such call, one per angle group, and
+kept on the plan for every later call.
 
 Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
 ``(..., A, S)``.
@@ -28,6 +29,7 @@ from pdunet_tpu_torch.geometry import ParallelGeometry, ParallelPlan, build_para
 from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     backproject_group,
     backproject_pair_group,
+    build_group_tables,
     build_pair_tables,
     project_group,
     project_pair_group,
@@ -50,17 +52,25 @@ def _pair_args(arr, grp):
     return tuple(arr(f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb", "sgn"))
 
 
-def _pair_tables(plan: ParallelPlan, grp: str, x: torch.Tensor, cdt):
-    """The group's trig tables for the tensor-core route (CUDA, bf16), made
-    once per plan; None where the kernels do not read them."""
+def _tables(plan: ParallelPlan, grp: str, x: torch.Tensor, cdt):
+    """The angle group's trig tables for the tensor-core route (CUDA, bf16),
+    made once per plan: the pair kernels' on a plan that pairs, else the
+    per-angle kernels'; None where the kernels do not read them."""
     if cdt != torch.bfloat16 or x.device.type != "cuda":
         return None
-    if grp not in plan.pair_tables:
+    pairs = plan.meta["use_pairs"]
+    store = plan.pair_tables if pairs else plan.group_tables
+    if grp not in store:
         with torch.no_grad():
-            plan.pair_tables[grp] = build_pair_tables(
-                *(getattr(plan, f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb")),
-                plan.spec, plan.meta["S_ext"])
-    return plan.pair_tables[grp]
+            if pairs:
+                store[grp] = build_pair_tables(
+                    *(getattr(plan, f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb")),
+                    plan.spec, plan.meta["S_ext"])
+            else:
+                store[grp] = build_group_tables(
+                    getattr(plan, f"pos_{grp}"), getattr(plan, f"shift_{grp}"), plan.spec,
+                    plan.meta["S_ext"])
+    return store[grp]
 
 
 def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
@@ -78,11 +88,11 @@ def parallel_project(plan: ParallelPlan, image: torch.Tensor) -> torch.Tensor:
         if pairs and meta[f"P_{grp}"]:
             parts.append(project_pair_group(
                 f, *_pair_args(arr, grp), spec, Wc, Ws, L, contract_x, cdt,
-                tables=_pair_tables(plan, grp, f, cdt)))
+                tables=_tables(plan, grp, f, cdt)))
         elif not pairs and meta[f"A_{grp}"]:
             parts.append(project_group(
                 f, arr(f"pos_{grp}"), arr(f"shift_{grp}"), spec, Wc, Ws, L,
-                contract_x, cdt))
+                contract_x, cdt, tables=_tables(plan, grp, f, cdt)))
     p = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     p = p.index_select(1, plan.index("pair_inv_perm" if pairs else "inv_perm"))
     return p.reshape(batch_shape + p.shape[1:]).to(image.dtype)
@@ -104,12 +114,12 @@ def parallel_backproject(plan: ParallelPlan, sino: torch.Tensor) -> torch.Tensor
             pg = p.index_select(1, plan.index(f"pair_take_{grp}"))
             part = backproject_pair_group(
                 pg, *_pair_args(arr, grp), arr(f"pair_msk_{grp}"), spec, Wc, Ws,
-                L, contract_x, N, cdt, tables=_pair_tables(plan, grp, pg, cdt))
+                L, contract_x, N, cdt, tables=_tables(plan, grp, pg, cdt))
         elif not pairs and meta[f"A_{grp}"]:
             pg = p.index_select(1, plan.index(f"idx_{grp}"))
             part = backproject_group(
                 pg, arr(f"pos_{grp}"), arr(f"shift_{grp}"), spec, Wc, Ws, L,
-                contract_x, N, cdt)
+                contract_x, N, cdt, tables=_tables(plan, grp, pg, cdt))
         else:
             continue
         f = part if f is None else f + part

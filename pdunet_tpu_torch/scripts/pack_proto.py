@@ -1,8 +1,9 @@
 """Probe: does packing re/im into one product matter on the card?
 
-Counterpart of ``scripts/pack_proto.py``. The shipped per-angle kernels
-(``project_group`` / ``backproject_group``) derive ĝ_re and ĝ_im per thread
-from one load of F. The packed kernels run stage 1 over one (N, 2K) operand
+Counterpart of ``scripts/pack_proto.py``. The shipped per-angle CUDA-core
+kernels (``_project_group_cc`` / ``_backproject_group_cc``, the float32
+route of ``project_group`` / ``backproject_group``) derive ĝ_re and ĝ_im
+per thread from one load of F. The packed kernels run stage 1 over one (N, 2K) operand
 [T̂c | T̂s], fold stage 2 into two 2K-wide rows and run stage 3 as one
 4K-deep product (the adjoint contracts the packed 2K once). At the flagship
 plan's x group (256², 90 of 360 angles, batch 32) this checks packed
@@ -24,7 +25,12 @@ import sys
 import torch
 
 from pdunet_tpu_torch.bench import device_kind, timeit
-from pdunet_tpu_torch.ops.radon.cuda_kernels import backproject_group, project_group
+from pdunet_tpu_torch.ops.radon.cuda_kernels import (
+    _backproject_group_cc,
+    _project_group_cc,
+    backproject_group,
+    project_group,
+)
 from pdunet_tpu_torch.ops.radon.proto_kernels import (
     backproject_group_packed,
     project_group_packed,
@@ -45,15 +51,26 @@ def main(argv=None):
     print(f"plan: K={m['K']} S={m['S']} S_ext={L} A_x={m['A_x']} A_y={m['A_y']} "
           f"B={f.shape[0]} on {device_kind(device)}")
     rows = (plan.pos_x, plan.shift_x, plan.spec, plan.Wc, plan.Ws, L, True)
+
+    # "shipped": the per-angle CUDA-core kernels (like with like beside the
+    # packed ones; project_group's bf16 route now runs on the tensor cores)
+    def shipped_fwd(x, cdt):
+        fn = project_group if x.device.type == "cpu" else _project_group_cc
+        return fn(x, *rows, cdt)
+
+    def shipped_adj(x, cdt):
+        if x.device.type == "cpu":
+            return backproject_group(x, *rows, N, cdt)
+        return _backproject_group_cc(x, *rows, N, cdt)
+
     p = torch.randn(f.shape[0], m["A_x"], m["S"],
                     generator=torch.Generator(device=device).manual_seed(1), device=device)
     errs = {}
     with torch.inference_mode():
         for cdt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             name = str(cdt).split(".")[1]
-            err = rel_max(project_group_packed(f, *rows, cdt), project_group(f, *rows, cdt))
-            erra = rel_max(backproject_group_packed(p, *rows, N, cdt),
-                           backproject_group(p, *rows, N, cdt))
+            err = rel_max(project_group_packed(f, *rows, cdt), shipped_fwd(f, cdt))
+            erra = rel_max(backproject_group_packed(p, *rows, N, cdt), shipped_adj(p, cdt))
             print(f"fwd packed rel-err ({name}): {err:.3e}")
             print(f"adj packed rel-err ({name}): {erra:.3e}")
             if not (err < tol and erra < tol):
@@ -66,11 +83,11 @@ def main(argv=None):
 
     cdt = torch.bfloat16
     t = {
-        "fwd_shipped": timeit(lambda x: project_group(x, *rows, cdt), f, iters=50),
+        "fwd_shipped": timeit(lambda x: shipped_fwd(x, cdt), f, iters=50),
         "fwd_packed": timeit(lambda x: project_group_packed(x, *rows, cdt), f, iters=50),
         "fwd_packed_exact": timeit(
             lambda x: project_group_packed(x, *rows, cdt, doubling=False), f, iters=50),
-        "adj_shipped": timeit(lambda x: backproject_group(x, *rows, N, cdt), p, iters=50),
+        "adj_shipped": timeit(lambda x: shipped_adj(x, cdt), p, iters=50),
         "adj_packed": timeit(lambda x: backproject_group_packed(x, *rows, N, cdt), p,
                              iters=50),
         "adj_packed_exact": timeit(
