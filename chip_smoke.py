@@ -10,28 +10,35 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   2. at the serving path's shapes (pdunet_parallel: B=4, 256², 90 of 360
      angles, P=23 pairs per group, K=180), hold each kernel against its plain
      PyTorch version on the card, float32 and bf16 operands, both groups:
-     relative error ≤ 1e-5 (f32, CUDA-core route) / ≤ 5e-3 (bf16, the
-     tensor-core route from the plan's trig tables), TF32 off for the
-     reference; the card's tables bit-equal to the plain builder's; the bf16 route
-     again at B = 1 and 32 and at a size whose rows do not fill a tile (96²,
-     24 of 96 angles), and the CUDA-core kernels in bf16 (the A/B baseline);
+     relative error ≤ 1e-5 (f32, the split-bf16 tensor-core route) / ≤ 5e-3
+     (bf16, the tensor-core route), each from the plan's trig tables, TF32
+     off for the reference; both routes' tables bit-equal to the plain
+     builders'; both routes against the plain versions of their own tiling
+     and arithmetic; both again at B = 1 and 32 and at a size whose rows do
+     not fill a tile (96², 24 of 96 angles), and the CUDA-core kernels in
+     f32 and bf16 (the A/B baseline);
   3. the adjoint dot-product test of the routed kernel pair in float32
-     (≤ 1e-5), and of the bf16 tensor-core pair per group: its mismatch at
-     most 2× the plain bf16 pair's plus 1e-4;
+     (≤ 1e-5, on the split route), and of the bf16 tensor-core pair per
+     group: its mismatch at most 2× the plain bf16 pair's plus 1e-4;
   4. the serving path at full width (build_task → make_batch →
      batch_from_images → recon_fn → PSNR/SSIM) with random weights from a
-     seed; launch counters, zeroed before build_task, must show the tables
-     built once per group, every bf16 A and A† (the power iteration in
-     build_task, 2·n_iters per op per batch in recon_fn) on the tensor-core
-     route and synthesis and FBP on the float32 route; the card's f0 must
-     match the plain path on the CPU, and a cut-down float32 task must
-     reconstruct the same on the card and on the CPU;
-  5. timings of each kernel beside its bound and its plain version, a bf16
-     torch.matmul of stage 1's shape as a labelled yardstick, the pair
-     kernels' tensor-core and CUDA-core bf16 routes in turns at B = 4 and
-     B = 256, warm and with the L2 cache flushed before each call, the
-     adjoint's time against its slice count at B = 4, the table build time,
-     and reconstruction slices/s and profile at batch 4;
+     seed; launch counters, zeroed before build_task, must show each route's
+     tables built once per group, every bf16 A and A† (the power iteration
+     in build_task, 2·n_iters per op per batch in recon_fn) on the bf16
+     tensor-core route, synthesis and FBP on the split route, and no
+     CUDA-core pair launch; the card's f0 must match the plain path on the
+     CPU, and a cut-down float32 task must reconstruct the same on the card
+     and on the CPU, with TF32 off and with torch's default (cuDNN's TF32
+     allowed: the UNet's f32 convolutions pin full f32 themselves);
+  5. timings of each kernel beside its bound and its plain version, a
+     torch.matmul of stage 1's shape as a labelled yardstick (bf16; full f32
+     for the f32 route), each tensor-core route against the CUDA-core
+     kernels in turns at B = 4 and B = 256, warm and with the L2 cache
+     flushed before each call, the split route's bound (stage 1 as three
+     bf16 products, stages 2-3 in FP32) beside the FP32 one, both adjoints'
+     times against their slice counts at B = 4, the table build times,
+     batch_from_images on either f32 route at batch 4 and 256, and
+     reconstruction slices/s and profile at batch 4;
   6. at the radial path's shapes (pdunet_radial: 256² complex images, 128 of
      512 golden-angle spokes of 512 samples, so the per-angle kernels see
      B' = 2·4 = 8 real images, A_x = A_y = 64 spokes, K = 256, S = 1024),
@@ -75,10 +82,10 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only.
 
-Output: a ``{"kernels": [...]}`` JSON line (ten kernels: the six TPU
-kernel rows, row 5 as its doubling and no-trig variants, and the pair and
-per-angle kernels' trig-table builders), then the card's name and power
-limit, then the last line
+Output: a ``{"kernels": [...]}`` JSON line (eleven kernels: the six TPU
+kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
+builders of the pair kernels' two routes and of the per-angle kernels),
+then the card's name and power limit, then the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -215,6 +222,19 @@ def bound_ms(flops, nbytes, tname):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def split_bound_ms(B, N, P, K, S):
+    """Least time of one split-bf16 pair-group call: stage 1 (or 1ᵀ), run
+    as three bf16 products, over the bf16 peak, plus stages 2-3 over the
+    FP32 peak, against its bytes (``pair_cost``'s) over the memory rate. A
+    split kernel may beat 67 TFLOP/s, so the FP32 bound alone would read
+    above 100%."""
+    flops, nbytes = pair_cost(B, N, P, K, S)
+    stage1 = 4 * B * P * N * N * K
+    t_ops = 3 * stage1 / PEAK_FLOPS["bfloat16"] + (flops - stage1) / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def check_kernels(kernels, errs, dtypes=(torch.float32, torch.bfloat16)):
     """Each kernel against its plain version on the same inputs, f32 and
     bf16 operands, both angle groups; records the worst errors in ``errs``."""
@@ -236,10 +256,13 @@ def check_kernels(kernels, errs, dtypes=(torch.float32, torch.bfloat16)):
                 e[0], e[1] = max(e[0], mae), max(e[1], r)
 
 
-def time_kernels(kernels, errs, launches, cost, source, replaces, yardstick_ms, card):
+def time_kernels(kernels, errs, launches, cost, source, replaces, yardstick_ms, card,
+                 bound_f32=None):
     """The ``{"kernels": [...]}`` entries: CUDA-event times of each kernel
     and its plain version (mean of the x and y group calls), beside the
-    bound from ``cost(tname) = (flops, bytes)`` per call."""
+    bound from ``cost = (flops, bytes)`` per call (``bound_f32``, a
+    (ms, what) pair, replaces the float32 one where the f32 route does not
+    run on the CUDA cores)."""
     entries = []
     for name, (call, kern, plain) in kernels.items():
         entry = {"name": name, "route": "cuda", "source": source,
@@ -251,6 +274,8 @@ def time_kernels(kernels, errs, launches, cost, source, replaces, yardstick_ms, 
             p_ms = cuda_ms(lambda: (call("x", cdt, plain), call("y", cdt, plain)),
                            iters=5) / 2
             bound, by = bound_ms(fl, nb, tname)
+            if cdt == torch.float32 and bound_f32 is not None:
+                bound, by = bound_f32
             print(f"[time] {name} {tname}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                   f"bound {bound:.4f} ms ({by}; {fl / 1e9:.3f} GFLOP, {nb / 1e6:.3f} MB "
                   f"per call), {fl / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s ({card})")
@@ -369,7 +394,7 @@ def profile_recon(one_recon, card, reps=3):
     groups = {}
     for e in kern:
         n = e.key
-        g = ("mirror-pair projector kernels (radon_pair.cu, radon_pair_tc.cu)" if "pair_" in n
+        g = ("mirror-pair projector kernels (radon_pair*.cu)" if "pair_" in n
              else "per-angle projector kernels (radon_group.cu, radon_group_tc.cu)"
              if "group_" in n
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
@@ -387,9 +412,12 @@ def profile_recon(one_recon, card, reps=3):
                   f"x{e.count // reps:<4d} {e.key[:110]}")
 
 
-#: the kernels of csrc/radon_pair_tc.cu
+#: the kernels of csrc/radon_pair_tc.cu and csrc/radon_pair_split.cu
 TC_KERNELS = ("pair_tables", "pair_tc_prep", "pair_tc_fwd", "pair_tc_fwd_stage3",
               "pair_tc_adj_stage3t", "pair_tc_adj", "pair_tc_reduce")
+SPLIT_KERNELS = ("pair_split_tables", "pair_split_prep", "pair_split_fwd",
+                 "pair_split_fwd_stage3", "pair_split_adj_stage3t", "pair_split_adj",
+                 "pair_split_reduce")
 
 
 def pair_rows(plan, g):
@@ -399,77 +427,105 @@ def pair_rows(plan, g):
 def pair_calls(ck, plan, tabs, f, p):
     """(fwd, adj) for check_kernels: fwd(g, cdt, impl) runs a pair-forward
     implementation on the image batch f, adj(g, cdt, impl) an adjoint on
-    p[g]; the wrappers get the group's trig tables, the adjoint kernels the
+    p[g]; the wrappers get the group's trig tables (``tabs[cdt][g]``: the
+    bf16 route's, or the float32 split route's), the adjoint kernels the
     image size (the plain versions read it off pos)."""
     L, N = plan.meta["S_ext"], plan.meta["N"]
 
     def fwd(g, cdt, impl):
         a = (f, *pair_rows(plan, g)[:4], plan.spec, plan.Wc, plan.Ws, L, g == "x", cdt)
-        return impl(*a, tables=tabs[g]) if impl is ck.project_pair_group else impl(*a)
+        return impl(*a, tables=tabs[cdt][g]) if impl is ck.project_pair_group else impl(*a)
 
     def adj(g, cdt, impl):
         a = (p[g], *pair_rows(plan, g), plan.spec, plan.Wc, plan.Ws, L, g == "x")
         if impl is ck.backproject_pair_group:
-            return impl(*a, N, cdt, tables=tabs[g])
+            return impl(*a, N, cdt, tables=tabs[cdt][g])
         return impl(*a, N, cdt) if impl is ck._backproject_pair_cc else impl(*a, cdt)
 
     return fwd, adj
 
 
 def pair_counts(ck):
-    """(launches, tensor-core launches) of the pair wrappers and the table builder."""
+    """(launches, bf16 tensor-core launches, split-bf16 launches) of the
+    pair wrappers, and the launches of the table builders and of the
+    CUDA-core pair functions (the A/B baseline)."""
     return {"project_pair_group": (ck.project_pair_group.launches,
-                                   ck.project_pair_group.launches_tc),
+                                   ck.project_pair_group.launches_tc,
+                                   ck.project_pair_group.launches_split),
             "backproject_pair_group": (ck.backproject_pair_group.launches,
-                                       ck.backproject_pair_group.launches_tc),
-            "build_pair_tables": (ck.build_pair_tables.launches, 0)}
+                                       ck.backproject_pair_group.launches_tc,
+                                       ck.backproject_pair_group.launches_split),
+            "build_pair_tables": (ck.build_pair_tables.launches, 0, 0),
+            "build_pair_split_tables": (ck.build_pair_split_tables.launches, 0, 0),
+            "_project_pair_cc": (ck._project_pair_cc.launches, 0, 0),
+            "_backproject_pair_cc": (ck._backproject_pair_cc.launches, 0, 0)}
 
 
-def route_ab(ops, calls_for, cost, mm_shape, card, batches, dev, gen):
-    """Device times per group call (mean of x and y) of two kernels' bf16
-    routes, CUDA-core and tensor-core in turns (cc, tc, tc, cc), warm and
-    with the L2 cache flushed before each call, at each batch size B, beside
-    the bound and a bf16 torch.matmul of stage 1's shape. ``ops`` maps each
-    kernel to its (tensor-core wrapper, CUDA-core function);
-    ``calls_for(B)`` gives each kernel's call(g, cdt, impl) on random
-    inputs of batch B; ``cost(B)`` its (flops, bytes) per call;
-    ``mm_shape(B)`` the yardstick's (matrices, rows, depth, columns)."""
-    bf16 = torch.bfloat16
+def pair_tables(ck, plan):
+    """The card's trig tables of both groups for both pair routes, checked
+    bit-equal to the plain builders': {cdt: {group: tables}}."""
+    L = plan.meta["S_ext"]
+    args = {g: (*pair_rows(plan, g)[:3], plan.spec, L) for g in "xy"}
+    return {torch.bfloat16: check_tables(ck.build_pair_tables, ck._pair_tables, args),
+            torch.float32: check_tables(ck.build_pair_split_tables, ck._pair_split_tables,
+                                        args)}
+
+
+def route_ab(ops, calls_for, cost, mm_shape, card, batches, dev, gen, cdt=torch.bfloat16,
+             bound=None, key="tc"):
+    """Device times per group call (mean of x and y) of two routes of each
+    kernel at operand type ``cdt``, the CUDA-core one ("cc") and the
+    tensor-core one (``key``: "tc", or "split" for the f32 split-bf16
+    route) in turns (cc, new, new, cc), warm and with the L2 cache flushed
+    before each call, at each batch size B, beside the bound and a
+    torch.matmul of stage 1's shape in ``cdt`` (TF32 off: full f32 for
+    float32). ``ops`` maps each kernel to its (tensor-core wrapper,
+    CUDA-core function); ``calls_for(B)`` gives each kernel's call(g, cdt,
+    impl) on random inputs of batch B; ``cost(B)`` its (flops, bytes) per
+    call; ``bound(B)``, if given, its (bound ms, what); ``mm_shape(B)`` the
+    yardstick's (matrices, rows, depth, columns). Keys of float32 runs end
+    in ``_f32``."""
+    tname = str(cdt).split(".")[1]
+    sfx = "" if cdt == torch.bfloat16 else "_f32"
     flush = torch.empty(64 * 2 ** 20, device=dev)  # 256 MB
     out = {op: {} for op in ops}
     for B in batches:
         calls = calls_for(B)
         fl, nb = cost(B)
-        bound, by = bound_ms(fl, nb, "bfloat16")
+        peak_bound = bound_ms(fl, nb, tname)  # the operand type's own peak
+        bnd, by = bound(B) if bound is not None else peak_bound
         iters = 10 if B <= 32 else 4
         for op, (tc, cc) in ops.items():
             call = calls[op]
             turns = {}
             for mode, buf in (("", None), ("_cold", flush)):
-                for impl, key in ((cc, "cc"), (tc, "tc"), (tc, "tc"), (cc, "cc")):
-                    ms = sum(device_ms(lambda g=g, impl=impl: call(g, bf16, impl), iters, buf)
+                for impl, k in ((cc, "cc"), (tc, key), (tc, key), (cc, "cc")):
+                    ms = sum(device_ms(lambda g=g, impl=impl: call(g, cdt, impl), iters, buf)
                              for g in "xy") / 2
-                    turns.setdefault(f"ms_{key}{mode}_b{B}", []).append(ms)
+                    turns.setdefault(f"ms_{k}{sfx}{mode}_b{B}", []).append(ms)
             row = {k: sum(v) / len(v) for k, v in turns.items()}
-            row[f"bound_ms_b{B}"] = bound
+            row[f"bound_ms{sfx}_b{B}"] = bnd
+            if bound is not None:
+                row[f"bound_ms{sfx}_{tname}_peak_b{B}"] = peak_bound[0]
             out[op].update(row)
-            tc_ms = row[f"ms_tc_b{B}"]
-            print(f"[time] {op} bf16 at B={B}: tensor cores {tc_ms:.4f} ms warm, "
-                  f"{row[f'ms_tc_cold_b{B}']:.4f} ms cold L2; CUDA cores "
-                  f"{row[f'ms_cc_b{B}']:.4f} / {row[f'ms_cc_cold_b{B}']:.4f} ms; turns "
+            new_ms = row[f"ms_{key}{sfx}_b{B}"]
+            print(f"[time] {op} {tname} at B={B}: {key} route {new_ms:.4f} ms warm, "
+                  f"{row[f'ms_{key}{sfx}_cold_b{B}']:.4f} ms cold L2; CUDA cores "
+                  f"{row[f'ms_cc{sfx}_b{B}']:.4f} / {row[f'ms_cc{sfx}_cold_b{B}']:.4f} ms; turns "
                   f"{ {k: [round(v, 4) for v in vs] for k, vs in turns.items()} }; bound "
-                  f"{bound:.4f} ms ({by}), {fl / (tc_ms * 1e-3) / 1e12:.1f} TFLOP/s ({card})")
+                  f"{bnd:.4f} ms ({by}; over the {tname} peak alone {peak_bound[0]:.4f}), "
+                  f"{fl / (new_ms * 1e-3) / 1e12:.1f} TFLOP/s ({card})")
         del calls
         n_mat, rows, depth, cols = mm_shape(B)
-        Tm = torch.randn(n_mat, depth, cols, generator=gen, device=dev).to(bf16)
-        Fm = torch.randn(rows, depth, generator=gen, device=dev).to(bf16)
+        Tm = torch.randn(n_mat, depth, cols, generator=gen, device=dev).to(cdt)
+        Fm = torch.randn(rows, depth, generator=gen, device=dev).to(cdt)
         Fm = Fm.expand(n_mat, rows, depth).contiguous()
         mm = device_ms(lambda: torch.matmul(Fm, Tm), iters)
         del Fm, Tm
-        print(f"[time] yardstick at B={B}: bf16 torch.matmul of stage 1's shape "
+        print(f"[time] yardstick at B={B}: {tname} torch.matmul of stage 1's shape "
               f"({n_mat} x [{rows}x{depth}] @ [{depth}x{cols}]) {mm:.4f} ms ({card})")
         for op in out:
-            out[op][f"stage1_matmul_bf16_ms_b{B}"] = mm
+            out[op][f"stage1_matmul_{tname}_ms_b{B}"] = mm
     return out
 
 
@@ -483,10 +539,12 @@ def check_tables(build, plain, args_by_group):
         tabs[g] = build(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
-        mae = float((tabs[g].float() - ref.float()).abs().max())
-        print(f"[check] {build.__name__} group {g}: {tuple(tabs[g].shape)} bf16 vs plain "
-              f"builder: max_abs {mae:.3e} (bit-equal: {torch.equal(tabs[g], ref)})")
-        check(torch.equal(tabs[g], ref), f"{build.__name__} group {g}: not bit-equal")
+        pairs = list(zip(tabs[g], ref)) if isinstance(ref, tuple) else [(tabs[g], ref)]
+        for t, r in pairs:
+            mae = float((t.float() - r.float()).abs().max())
+            print(f"[check] {build.__name__} group {g}: {tuple(t.shape)} {t.dtype} vs plain "
+                  f"builder: max_abs {mae:.3e} (bit-equal: {torch.equal(t, r)})")
+            check(torch.equal(t, r), f"{build.__name__} group {g}: not bit-equal")
     return tabs
 
 
@@ -498,12 +556,15 @@ def table_entry(build, plain, args, launches, replaces, path, card):
     ms = device_ms(lambda: build(*args))
     plain_ms = cuda_ms(lambda: plain(*args), iters=5)
     tab = build(*args)
-    nbytes = tab.numel() * 2 + 4 * sum(a.numel() for a in args if torch.is_tensor(a))
+    tabs = tab if isinstance(tab, tuple) else (tab,)
+    nbytes = (sum(t.numel() * t.element_size() for t in tabs)
+              + 4 * sum(a.numel() for a in args if torch.is_tensor(a)))
     bound, by = bound_ms(0, nbytes, "bfloat16")
     name = build.__name__
-    print(f"[time] {name} (one group, {tuple(tab.shape)} bf16, {nbytes / 1e6:.2f} MB): "
+    print(f"[time] {name} (one group, {[tuple(t.shape) for t in tabs]}, {nbytes / 1e6:.2f} MB): "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
-    source = "radon_pair_tc.cu" if name == "build_pair_tables" else "radon_group_tc.cu"
+    source = {"build_pair_tables": "radon_pair_tc.cu", "build_pair_split_tables":
+              "radon_pair_split.cu"}.get(name, "radon_group_tc.cu")
     return {"name": name, "route": "cuda",
             "source": f"pdunet_tpu_torch/ops/radon/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": 0.0, "ms": ms,
@@ -559,6 +620,32 @@ def group_tables(ck, plan):
     return check_tables(ck.build_group_tables, ck._group_tables,
                         {g: (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"),
                              plan.spec, plan.meta["S_ext"]) for g in "xy"})
+
+
+@contextlib.contextmanager
+def pair_cc_route(ck):
+    """Send parallel.py's float32 pair calls to the CUDA-core kernels of
+    radon_pair.cu: the A/B baseline of the split-bf16 route for a whole
+    synthesis (the main path never takes it); bf16 calls keep their route."""
+    from pdunet_tpu_torch.ops.radon import parallel
+
+    saved = parallel.project_pair_group, parallel.backproject_pair_group
+
+    def fwd(f, *a, tables=None):
+        if a[-1] == torch.float32:
+            return ck._project_pair_cc(f, *a)
+        return saved[0](f, *a, tables=tables)
+
+    def adj(p, *a, tables=None):
+        if a[-1] == torch.float32:
+            return ck._backproject_pair_cc(p, *a)
+        return saved[1](p, *a, tables=tables)
+
+    parallel.project_pair_group, parallel.backproject_pair_group = fwd, adj
+    try:
+        yield
+    finally:
+        parallel.project_pair_group, parallel.backproject_pair_group = saved
 
 
 @contextlib.contextmanager
@@ -720,7 +807,8 @@ def radial_phases(dev, card, gen):
     print(f"[chip_smoke] radial main-path launches (total, tensor-core): after build_task "
           f"{at_build}, after {n_batches} batches {counts}")
     check(ck.project_pair_group.launches == ck.backproject_pair_group.launches == 0
-          and ck.build_pair_tables.launches == 0, "a pair kernel ran on the radial path")
+          and ck.build_pair_tables.launches == ck.build_pair_split_tables.launches == 0,
+          "a pair kernel ran on the radial path")
     # build_task: the power iteration's (n + 1) bf16 A†A, 2 groups each, and
     # one table build per group. Per batch: make_batch and batch_from_images
     # each run A + the DCF adjoint in f32, recon_fn n_iters bf16 A and A†;
@@ -1099,11 +1187,12 @@ def main():
                 print(f"[build] {name}: {line.strip()}")
     print(f"[chip_smoke] built {sorted(logs)} in {build_s:.2f} s")
     hgmma = {**hgmma_counts(_build.build("radon_pair_tc"), TC_KERNELS),
+             **hgmma_counts(_build.build("radon_pair_split"), SPLIT_KERNELS),
              **hgmma_counts(_build.build("radon_group_tc"), GROUP_TC_KERNELS)}
-    print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu and "
-          f"radon_group_tc.cu: {hgmma}")
-    for name in ("pair_tc_fwd", "pair_tc_adj", "group_tc_fwd", "group_tc_adj",
-                 "group_tc_fwd_stage3", "group_tc_adj_stage3t"):
+    print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu, "
+          f"radon_pair_split.cu and radon_group_tc.cu: {hgmma}")
+    for name in ("pair_tc_fwd", "pair_tc_adj", "pair_split_fwd", "pair_split_adj",
+                 "group_tc_fwd", "group_tc_adj", "group_tc_fwd_stage3", "group_tc_adj_stage3t"):
         check(hgmma[name] > 0, f"{name} (a tensor-core product) has no HGMMA instruction")
 
     from pdunet_tpu_torch.configs import get_preset
@@ -1133,9 +1222,8 @@ def main():
     f = torch.randn(B, N, N, generator=gen, device=dev)
     p = {g: torch.randn(B, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
 
-    # the card's trig tables (the tensor-core route's) against the plain builder
-    tabs = check_tables(ck.build_pair_tables, ck._pair_tables,
-                        {g: (*pair_rows(plan, g)[:3], plan.spec, L) for g in "xy"})
+    # the card's trig tables (both tensor-core routes') against the plain builders
+    tabs = pair_tables(ck, plan)
 
     fwd, adj = pair_calls(ck, plan, tabs, f, p)
     kernels = {
@@ -1145,34 +1233,40 @@ def main():
     }
     errs = {}
     check_kernels(kernels, errs)
-    # the CUDA-core kernels with bf16 operands: the A/B baseline of phase 5
+    # the CUDA-core kernels, f32 and bf16 operands: the A/B baseline of
+    # both tensor-core routes in phase 5
     check_kernels({"project_pair_group CUDA-core": (fwd, ck._project_pair_cc,
                                                     ck._project_pair_group),
                    "backproject_pair_group CUDA-core": (adj, ck._backproject_pair_cc,
                                                         ck._backproject_pair_group)},
-                  errs, dtypes=(torch.bfloat16,))
-    # the tensor-core kernels against the plain versions of their own tiling,
-    # which read the same (card-built) tables
+                  errs)
+    # the tensor-core kernels against the plain versions of their own tiling
+    # and arithmetic, which read the same (card-built) tables: bf16, and the
+    # float32 split route (hi/lo operands, three products)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for g in "xy":
-        r = pair_rows(plan, g)
-        bf16 = torch.bfloat16
-        rf = rel(fwd(g, bf16, ck.project_pair_group),
-                 ck._pair_forward_tc(f, tabs[g], r[3], plan.Wc, plan.Ws, g == "x"))
-        G = ck.pair_adjoint_splits(B, N, m[f"P_{g}"], n_sms)
-        ra = rel(adj(g, bf16, ck.backproject_pair_group),
-                 ck._pair_adjoint_tc(p[g], tabs[g], r[3], r[4], plan.Wc, plan.Ws, g == "x",
-                                     N, G))
-        print(f"[check] tensor-core pair vs its tiled plain version, group {g}: fwd rel "
-              f"{rf:.3e}, adj rel {ra:.3e} (G = {G} slices; tol 5e-3)")
-        check(rf <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "tiled plain version")
+    split_rel = {}
+    for cdt, cols in ((torch.bfloat16, ck._TC_ADJ_COLS), (torch.float32, ck._SPLIT_ADJ_COLS)):
+        tname = str(cdt).split(".")[1]
+        for g in "xy":
+            r = pair_rows(plan, g)
+            rf = rel(fwd(g, cdt, ck.project_pair_group),
+                     ck._pair_forward_tc(f, tabs[cdt][g], r[3], plan.Wc, plan.Ws, g == "x", cdt))
+            G = ck.pair_adjoint_splits(B, N, m[f"P_{g}"], n_sms, cols)
+            ra = rel(adj(g, cdt, ck.backproject_pair_group),
+                     ck._pair_adjoint_tc(p[g], tabs[cdt][g], r[3], r[4], plan.Wc, plan.Ws,
+                                         g == "x", N, G, cdt))
+            if cdt == torch.float32:
+                split_rel[g] = (rf, ra)
+            print(f"[check] tensor-core pair ({tname} route) vs its tiled plain version, group "
+                  f"{g}: fwd rel {rf:.3e}, adj rel {ra:.3e} (G = {G} slices; tol "
+                  f"{TOL[tname]:.0e})")
+            check(rf <= TOL[tname] and ra <= TOL[tname], "tiled plain version")
     # other batch sizes, and a size whose rows do not fill a 128-row tile
     ragged = build_parallel_plan(ParallelGeometry(image_size=96, n_angles=96).subsample(4),
                                  device=dev)
     for label, pl, B_ in (("B=1", plan, 1), ("B=32", plan, 32), ("96² 24 angles", ragged, 4)):
-        N_, S_, L_ = pl.meta["N"], pl.meta["S"], pl.meta["S_ext"]
-        tabs_ = tabs if pl is plan else {
-            g: ck.build_pair_tables(*pair_rows(pl, g)[:3], pl.spec, L_) for g in "xy"}
+        N_, S_ = pl.meta["N"], pl.meta["S"]
+        tabs_ = tabs if pl is plan else pair_tables(ck, pl)
         f_ = torch.randn(B_, N_, N_, generator=gen, device=dev)
         p_ = {g: torch.randn(B_, 2 * pl.meta[f"P_{g}"], S_, generator=gen, device=dev)
               for g in "xy"}
@@ -1183,13 +1277,23 @@ def main():
                                                            ck._backproject_pair_group)}, {})
 
     # -- 3. adjoint dot tests ------------------------------------------------------
+    # float32, the split route: y = A x plus a random sinogram of the same
+    # norm keeps <Ax, y> near ‖Ax‖², so the mismatch reads the pair's error
+    # (a few 1e-6 per operator) and not a ratio of near-zero random products
+    n_split = ck.project_pair_group.launches_split, ck.backproject_pair_group.launches_split
     x = torch.randn(B, N, N, generator=gen, device=dev)
-    y = torch.randn(B, len(sparse.angles), S, generator=gen, device=dev)
-    lhs = torch.vdot(parallel_project(plan, x).double().flatten(), y.double().flatten())
+    ax = parallel_project(plan, x)
+    y = torch.randn(ax.shape, generator=gen, device=dev)
+    y = ax + y * (ax.norm() / y.norm())
+    lhs = torch.vdot(ax.double().flatten(), y.double().flatten())
     rhs = torch.vdot(x.double().flatten(), parallel_backproject(plan, y).double().flatten())
     adj_rel = float(abs(lhs - rhs) / abs(lhs))
-    print(f"[check] adjoint <Ax,y> vs <x,A^T y>: rel {adj_rel:.3e} (tol 1e-5)")
+    print(f"[check] float32 adjoint <Ax,y> vs <x,A^T y> (split-bf16 route): rel {adj_rel:.3e} "
+          f"(tol 1e-5)")
     check(adj_rel < 1e-5, f"adjoint test failed: {adj_rel}")
+    check(ck.project_pair_group.launches_split == n_split[0] + 2
+          and ck.backproject_pair_group.launches_split == n_split[1] + 2,
+          "the float32 dot test did not run the split route")
     # bf16: A and A† round different operands, so the pair is not an exact
     # transpose; the kernel pair must do no worse than the plain pair
     dot_bf16 = {}
@@ -1238,29 +1342,37 @@ def main():
     counts = pair_counts(ck)
     launches = {name: counts[name][0] for name in ("project_pair_group",
                                                    "backproject_pair_group",
-                                                   "build_pair_tables")}
+                                                   "build_pair_tables",
+                                                   "build_pair_split_tables")}
     check(ck.project_group.launches == ck.backproject_group.launches == 0,
           "a per-angle kernel ran on the pdunet_parallel path")
     # build_task: the power iteration's (n + 1) bf16 A†A, 2 groups each, and
-    # one table build per group. Per batch: make_batch and batch_from_images
-    # each run A + FBP (one A†) in f32, recon_fn n_iters bf16 A and A†.
+    # one bf16 table build per group. Per batch: make_batch and
+    # batch_from_images each run A + FBP (one A†) in f32 on the split route
+    # (its tables built once per group, at the first batch), recon_fn
+    # n_iters bf16 A and A†. The CUDA-core kernels never run.
     n_iters = config.model.n_iters
     n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
-    print(f"[chip_smoke] main-path launches (total, tensor-core): after build_task "
-          f"{at_build}, after {n_batches} batches {counts}")
-    check(at_build["build_pair_tables"] == (2, 0) and counts["build_pair_tables"] == (2, 0),
-          "the trig tables were not built exactly once per group")
+    print(f"[chip_smoke] main-path launches (total, bf16 tensor-core, split): after "
+          f"build_task {at_build}, after {n_batches} batches {counts}")
+    check(at_build["build_pair_tables"][0] == 2 and counts["build_pair_tables"][0] == 2,
+          "the bf16 trig tables were not built exactly once per group")
+    check(at_build["build_pair_split_tables"][0] == 0
+          and counts["build_pair_split_tables"][0] == 2,
+          "the split trig tables were not built exactly once per group, at the first batch")
+    check(counts["_project_pair_cc"][0] == counts["_backproject_pair_cc"][0] == 0,
+          "a CUDA-core pair kernel ran on the main path")
     for name in ("project_pair_group", "backproject_pair_group"):
         tc_build = 2 * (n_power + 1)
-        check(at_build[name] == (tc_build, tc_build),
+        check(at_build[name] == (tc_build, tc_build, 0),
               f"{name}: {at_build[name]} in build_task, expected {tc_build} on the tensor cores")
-        n, n_tc = (c - b for c, b in zip(counts[name], at_build[name]))
+        n, n_tc, n_split = (c - b for c, b in zip(counts[name], at_build[name]))
         check(n_tc == n_batches * 2 * n_iters,
               f"{name}: {n_tc} tensor-core launches in {n_batches} batches, expected "
               f"{n_batches * 2 * n_iters} (recon_fn)")
-        check(n - n_tc == n_batches * 2 * 2,
-              f"{name}: {n - n_tc} float32 launches in {n_batches} batches, expected "
-              f"{n_batches * 2 * 2} (synthesis, FBP)")
+        check(n_split == n - n_tc == n_batches * 2 * 2,
+              f"{name}: {n_split} split-route launches of {n - n_tc} float32 ones in "
+              f"{n_batches} batches, expected {n_batches * 2 * 2} (synthesis, FBP)")
     for i, (batch, recon, ps, ss) in enumerate(results):
         check(recon.shape == (B, N, N), f"recon shape {tuple(recon.shape)}")
         check(bool(torch.isfinite(recon).all()), "non-finite reconstruction")
@@ -1297,6 +1409,21 @@ def main():
     small_rel = rel(recons[0], recons[1])
     print(f"[check] small f32 task recon, card vs CPU: rel {small_rel:.3e} (tol 1e-4)")
     check(small_rel < 1e-4, "small recon on the card disagrees with the CPU")
+    # again with torch's default (cuDNN may run f32 convolutions in TF32):
+    # the UNet's f32 convolutions pin full f32 themselves
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t_small = build_task(small, device=dev)
+        with torch.inference_mode():
+            im = random_phantom_batch(torch.Generator().manual_seed(7), 2, 32,
+                                      device="cpu").to(dev)
+            tf32_default = t_small.recon_fn(t_small.model, t_small.batch_from_images(im)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    tf32_rel = rel(tf32_default, recons[1])
+    print(f"[check] small f32 task recon with cudnn.allow_tf32 = True (torch's default), "
+          f"card vs CPU: rel {tf32_rel:.3e} (tol 1e-4)")
+    check(tf32_rel < 1e-4, "the f32 task on torch's TF32 default disagrees with the CPU")
 
     # -- 5. timings -------------------------------------------------------------
     fl, nb = pair_cost(B, N, P, K, S)
@@ -1309,50 +1436,100 @@ def main():
         "project_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:349",
         "backproject_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:380",
     }
+    split_bound = split_bound_ms(B, N, P, K, S)
+    fp32_bound = bound_ms(fl, nb, "float32")
+    print(f"[time] bounds per group call at B={B}: split-bf16 route {split_bound[0]:.4f} ms "
+          f"({split_bound[1]}: stage 1 as 3 bf16 products at 989 TFLOP/s, stages 2-3 at "
+          f"67), FP32 CUDA cores {fp32_bound[0]:.4f} ms ({card})")
     entries = time_kernels(kernels, errs, launches, (fl, nb),
                            "pdunet_tpu_torch/ops/radon/csrc/radon_pair_tc.cu", replaces,
-                           mm_ms, card)
+                           mm_ms, card, bound_f32=split_bound)
+
     def pair_inputs(B_):
         fwd_, adj_ = pair_calls(
             ck, plan, tabs, torch.randn(B_, N, N, generator=gen, device=dev),
             {g: torch.randn(B_, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"})
         return {"project_pair_group": fwd_, "backproject_pair_group": adj_}
 
-    ab = route_ab({"project_pair_group": (ck.project_pair_group, ck._project_pair_cc),
-                   "backproject_pair_group": (ck.backproject_pair_group,
-                                              ck._backproject_pair_cc)},
-                  pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
+    pair_ops = {"project_pair_group": (ck.project_pair_group, ck._project_pair_cc),
+                "backproject_pair_group": (ck.backproject_pair_group, ck._backproject_pair_cc)}
+    ab = route_ab(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
                   lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen)
-    # the adjoint's slice count at B = 4 (pair_adjoint_splits picks
-    # ⌈n_sms / tiles⌉, capped at P)
+    # float32: the split-bf16 route against radon_pair.cu's CUDA-core kernels,
+    # beside a full-f32 torch.matmul of stage 1's shape (TF32 off) as the yardstick
+    ab32 = route_ab(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
+                    lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen,
+                    cdt=torch.float32, bound=lambda B_: split_bound_ms(B_, N, P, K, S),
+                    key="split")
+    # the adjoints' slice counts at B = 4 (pair_adjoint_splits picks
+    # ⌊n_sms / tiles⌋, capped at P): bf16 (128 x 256 tiles), split (128 x 128)
     pair_sweep = split_sweep(
         ck, "pair_adjoint_splits", lambda g: adj(g, torch.bfloat16, ck.backproject_pair_group),
         B * -(-N // 128) * -(-N // 256), (8, 16, 17, 23), f"backproject_pair_group bf16 B={B}",
         card)
+    split_sweep_b4 = split_sweep(
+        ck, "pair_adjoint_splits", lambda g: adj(g, torch.float32, ck.backproject_pair_group),
+        B * -(-N // 128) * -(-N // 128), (4, 8, 9, 16, 23),
+        f"backproject_pair_group float32 (split) B={B}", card)
+    # each split-route call by kernel: products, stages 3 / 3ᵀ, prep, reduce
+    split_shares = {}
+    for B_ in (B, 256):
+        calls = pair_inputs(B_)
+        for op, impl in (("project_pair_group", ck.project_pair_group),
+                         ("backproject_pair_group", ck.backproject_pair_group)):
+            split_shares[f"{op}_b{B_}"] = call_profile(
+                lambda call=calls[op], impl=impl: call("x", torch.float32, impl),
+                f"{op} float32 (split) B={B_} group x", card)
+        del calls
     for e in entries:
         op = e["name"]
-        # "ms" is the device time of the route the main path takes; the
-        # back-to-back host-clocked time stays as ms_eager
-        e["ms_eager"] = e["ms"]
+        # "ms" / "ms_f32" are the device times of the routes the main path
+        # takes; the back-to-back host-clocked times stay as ms_eager*
+        e["ms_eager"], e["ms_eager_f32"] = e["ms"], e["ms_f32"]
         e.update(ab[op])
+        e.update(ab32[op])
         e["ms"] = ab[op]["ms_tc_b4"]
-        e["launches_tc"] = counts[op][1]
-        e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu"
-        e["hgmma"] = hgmma["pair_tc_fwd" if op == "project_pair_group" else "pair_tc_adj"]
-        e["operand_dtype"] = ("bfloat16 on tensor cores (f32 keys *_f32: CUDA-core "
-                              "route; *_cc_*: CUDA-core bf16 A/B baseline)")
+        e["ms_f32"] = ab32[op]["ms_split_f32_b4"]
+        e["bound_ms_f32_fp32"], e["bound_by_f32_fp32"] = fp32_bound
+        e["launches_tc"], e["launches_split"] = counts[op][1], counts[op][2]
+        e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_pair_split.cu"
+        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu"
+        fwd_op = op == "project_pair_group"
+        e["hgmma"] = hgmma["pair_tc_fwd" if fwd_op else "pair_tc_adj"]
+        e["hgmma_f32"] = hgmma["pair_split_fwd" if fwd_op else "pair_split_adj"]
+        e["rel_err_f32_vs_tiled_split"] = max(v[0 if fwd_op else 1] for v in split_rel.values())
+        e["operand_dtype"] = ("bfloat16 on tensor cores; f32 keys *_f32: split-bf16 route on "
+                              "tensor cores, bound_ms_f32 its bound, bound_ms_f32_fp32 the FP32 "
+                              "CUDA-core bound; *_cc_*: CUDA-core A/B baseline, radon_pair.cu")
     entries.append(table_entry(
         ck.build_pair_tables, ck._pair_tables, (*pair_rows(plan, "x")[:3], plan.spec, L),
         launches["build_pair_tables"], "pdunet_tpu/ops/radon/pallas_kernels.py:167",
         "once per plan and angle group (pdunet_parallel: in build_task)", card))
+    entries.append(table_entry(
+        ck.build_pair_split_tables, ck._pair_split_tables,
+        (*pair_rows(plan, "x")[:3], plan.spec, L), launches["build_pair_split_tables"],
+        "pdunet_tpu/ops/radon/pallas_kernels.py:167",
+        "once per f32 plan and angle group (pdunet_parallel: at the first synthesis)", card))
 
     def one_recon():
         with torch.inference_mode():
             task.recon_fn(task.model, batch)
 
     recon_s = recon_rate(one_recon, B, card, config.name)
-    synth_ms = cuda_ms(lambda: task.batch_from_images(batch["image"]), iters=10)
-    print(f"[time] batch_from_images (f32 A + FBP) at batch {B}: {synth_ms:.4f} ms")
+    # the synthesis (f32 A + FBP) at batch 4 and 256, on the split route and
+    # on the CUDA-core kernels, in turns
+    big = random_phantom_batch(torch.Generator(device=dev).manual_seed(5), 256, N, device=dev)
+    synth = {}
+    for B_, img in ((B, batch["image"]), (256, big)):
+        for key in ("split", "cc", "cc", "split"):
+            with pair_cc_route(ck) if key == "cc" else contextlib.nullcontext():
+                synth.setdefault(f"{key}_b{B_}", []).append(cuda_ms(
+                    lambda: task.batch_from_images(img), iters=10 if B_ == B else 3))
+        turns = {k: v for k, v in synth.items() if k.endswith(f"_b{B_}")}
+        print(f"[time] batch_from_images (f32 A + FBP) at batch {B_}: split route "
+              f"{sum(synth[f'split_b{B_}']) / 2:.4f} ms, CUDA-core route "
+              f"{sum(synth[f'cc_b{B_}']) / 2:.4f} ms (turns {turns}) ({card})")
+    del big
     profile_recon(one_recon, card)
 
     radial_entries, radial_stats = radial_phases(dev, card, gen)
@@ -1370,6 +1547,10 @@ def main():
                       "radial": radial_stats, "bench_headline_b32": bench_row,
                       "bf16_dot_test": dot_bf16, "hgmma": hgmma,
                       "pair_adjoint_split_sweep_b4": pair_sweep,
+                      "pair_split_adjoint_split_sweep_b4": split_sweep_b4,
+                      "pair_split_call_profile_ms": split_shares,
+                      "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
+                      "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "build_s": build_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

@@ -7,9 +7,11 @@ channel order is flax's: channel (s_h·s + s_w)·C + c, which differs from
 
 Compute dtype follows flax's ``dtype=``: inputs, weights and biases are cast
 to it for each layer while the parameters stay float32, and the output is
-cast back to float32. Initialisation is flax's: lecun_normal (truncated
-normal, fan-in) weights and zero biases, drawn from an explicit
-``torch.Generator``.
+cast back to float32. Float32 convolutions run in full float32 on the card
+(cuDNN's TF32 default is pinned off around them), as in the reference;
+bf16 ones are left as cuDNN runs them. Initialisation is flax's:
+lecun_normal (truncated normal, fan-in) weights and zero biases, drawn from
+an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pdunet_tpu_torch.utils.precision import exact_f32_conv
 
 __all__ = ["UNet", "space_to_depth", "depth_to_space", "lecun_normal_"]
 
@@ -78,7 +82,8 @@ class Conv(nn.Module):
 
     def forward(self, x):
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), w, b, padding=self.weight.shape[-1] // 2)
+        with exact_f32_conv(self.dtype == torch.float32):
+            return F.conv2d(x.to(self.dtype), w, b, padding=self.weight.shape[-1] // 2)
 
 
 class ConvTranspose(nn.Module):
@@ -99,7 +104,8 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x):
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
-        return F.conv_transpose2d(x.to(self.dtype), w, b, stride=2)
+        with exact_f32_conv(self.dtype == torch.float32):
+            return F.conv_transpose2d(x.to(self.dtype), w, b, stride=2)
 
 
 class ConvBlock(nn.Module):

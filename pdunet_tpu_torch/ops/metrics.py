@@ -7,10 +7,10 @@ their true bounds. Both reduce over the trailing two axes.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
+
+from pdunet_tpu_torch.utils.precision import exact_f32_conv
 
 __all__ = ["psnr", "ssim", "mse"]
 
@@ -38,21 +38,10 @@ def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
     return torch.outer(g, g)
 
 
-@contextlib.contextmanager
-def _exact_f32_conv():
-    """cuDNN runs float32 convolutions in TF32 by default (~3 decimal
-    digits), which corrupts SSIM's moment maps; pin full float32 here."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _filter2d(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
-    """Valid-mode 2D correlation of (B, H, W) with (k, k), exact float32."""
-    with _exact_f32_conv():
+    """Valid-mode 2D correlation of (B, H, W) with (k, k), exact float32
+    (TF32 would corrupt SSIM's moment maps)."""
+    with exact_f32_conv():
         return F.conv2d(x[:, None], win[None, None])[:, 0]
 
 

@@ -1,7 +1,7 @@
 // Mirror-pair parallel-beam projector kernels on Hopper's tensor cores
 // (sm_90a, bf16 operands): the route that project_pair_group /
 // backproject_pair_group take for cdt = bfloat16 on a CUDA tensor. The
-// float32 route stays on the CUDA-core kernels of radon_pair.cu.
+// float32 route runs the split-bf16 kernels of radon_pair_split.cu.
 //
 // Replaces the bf16 instantiation of the Pallas TPU kernels in
 // pdunet_tpu/ops/radon/pallas_kernels.py:
@@ -35,8 +35,8 @@
 //  * A 64-block adjoint grid at batch 4. The adjoint's output tiles are
 //    (128 image rows) x (256 image columns), and its depth — the pairs'
 //    64-deep chunks of (k, re/im), in order — is split into G slices
-//    chosen by the wrapper (pair_adjoint_splits) so that at least one block
-//    per SM is in flight, each slice writing a partial image that
+//    chosen by the wrapper (pair_adjoint_splits) so that one wave of one
+//    block per SM is in flight, each slice writing a partial image that
 //    pair_tc_reduce sums in a fixed order (no atomics: deterministic).
 //  * Stage 3ᵀ reading W with a stride of S. Stage 3ᵀ runs one warp per k
 //    with lanes across S (coalesced); stage 3 reads W coalesced, each load
@@ -61,11 +61,6 @@
 
 namespace {
 
-constexpr int ST_ROWS = 8;       // rows per stage-3 / 3ᵀ block
-constexpr int ST3T_TK = 32;      // frequencies per stage-3ᵀ block (4 per warp)
-constexpr int ST3_COLS = 64;     // output columns per stage-3 block, two per thread
-constexpr int ST3_SPLIT = ST_THREADS / (ST3_COLS / 2);  // ways its k loop is split
-
 __global__ void __launch_bounds__(256)
 pair_tables(const float* __restrict__ pos, const float* __restrict__ sha,
             const float* __restrict__ shb, const float* __restrict__ spec,
@@ -87,132 +82,19 @@ pair_tc_fwd(const __nv_bfloat16* __restrict__ fb, const __nv_bfloat16* __restric
   tc_fwd<2>(fb, tab, sgn, part, B, Np, P, K, K2p);
 }
 
-// Forward stage 3: Ŝ = Σ_rt part[rt] (row-tile order), rounded; then
-// out[row, s] = Σ_k Re Ŝ Wc[k, s] − Im Ŝ Ws[k, s] for ST_ROWS rows
-// (row = b·2P + 2p + m) and ST3_COLS columns per block. Ŝ sits in shared
-// memory as [k][row][re, im], so one 16-byte read serves two rows; each
-// thread owns two columns, and the k loop is split ST3_SPLIT ways across the
-// block (partial sums added in a fixed order).
-// grid (ceil(rows/ST_ROWS), ceil(S/ST3_COLS)).
+// Forward stage 3 and adjoint stage 3ᵀ with bf16 rounding (radon_tc.cuh).
 __global__ void __launch_bounds__(ST_THREADS)
 pair_tc_fwd_stage3(const float* __restrict__ part, const float* __restrict__ Wc,
                    const float* __restrict__ Ws, float* __restrict__ out,
                    int rows, int K, int S, int R) {
-  extern __shared__ float4 smem4[];
-  float* s_s = reinterpret_cast<float*>(smem4);  // [K][ST_ROWS][2]
-  float* red = s_s + ST_ROWS * 2 * K;            // [ST3_SPLIT][ST_ROWS][ST3_COLS]
-  const int row0 = blockIdx.x * ST_ROWS;
-  const int nr = min(ST_ROWS, rows - row0);
-  const size_t plane = (size_t)rows * K * 2;
-  const float* src = part + (size_t)row0 * K * 2;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < ST_ROWS * 2 * K; e += ST_THREADS) {
-    const int r = e / (2 * K), kk = e % (2 * K);
-    float v = 0.f;
-    if (r < nr)
-      for (int t = 0; t < R; ++t) v += src[t * plane + e];
-    s_s[((kk >> 1) * ST_ROWS + r) * 2 + (kk & 1)] = rnd(v);
-  }
-  __syncthreads();
-  const int q = threadIdx.x / (ST3_COLS / 2), c2 = threadIdx.x % (ST3_COLS / 2);
-  const int s = blockIdx.y * ST3_COLS + 2 * c2;
-  const int kq = ceil_div(K, ST3_SPLIT);
-  const int k_hi = min(K, (q + 1) * kq);
-  float acc[ST_ROWS][2] = {};
-  if (s < S) {
-    const bool two = s + 1 < S;
-#pragma unroll 4
-    for (int k = q * kq; k < k_hi; ++k) {
-      const float* wc = Wc + (size_t)k * S + s;
-      const float* ws = Ws + (size_t)k * S + s;
-      const float wc0 = rnd(wc[0]), ws0 = rnd(ws[0]);
-      const float wc1 = two ? rnd(wc[1]) : 0.f, ws1 = two ? rnd(ws[1]) : 0.f;
-      const float4* sk = reinterpret_cast<const float4*>(s_s + k * ST_ROWS * 2);
-#pragma unroll
-      for (int h = 0; h < ST_ROWS / 2; ++h) {
-        const float4 v = sk[h];  // (re, im) of rows 2h and 2h + 1
-        acc[2 * h][0] += v.x * wc0 - v.y * ws0;
-        acc[2 * h][1] += v.x * wc1 - v.y * ws1;
-        acc[2 * h + 1][0] += v.z * wc0 - v.w * ws0;
-        acc[2 * h + 1][1] += v.z * wc1 - v.w * ws1;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ST_ROWS; ++r)
-    *reinterpret_cast<float2*>(&red[(q * ST_ROWS + r) * ST3_COLS + 2 * c2]) =
-        make_float2(acc[r][0], acc[r][1]);
-  __syncthreads();
-  for (int e = threadIdx.x; e < ST_ROWS * ST3_COLS; e += ST_THREADS) {
-    const int r = e / ST3_COLS, col = e % ST3_COLS;
-    const int sc = blockIdx.y * ST3_COLS + col;
-    if (r >= nr || sc >= S) continue;
-    float v = 0.f;
-    for (int t = 0; t < ST3_SPLIT; ++t) v += red[(t * ST_ROWS + r) * ST3_COLS + col];
-    out[(size_t)(row0 + r) * S + sc] = v;
-  }
+  pair_stage3<true>(part, Wc, Ws, out, rows, K, S, R);
 }
 
-// Adjoint stage 3ᵀ: Ŝ_m[k] = (Σ_s p_m[s] Wc[k, s], −Σ_s p_m[s] Ws[k, s]),
-// p rounded to bf16 then member b masked by msk, Ŝ rounded to bf16. One warp
-// per k, lanes over s (coalesced W). Rows row = (b·P + p)·2 + m of p
-// (B, 2P, S); shat4 (B, P, Kp, 4) = [re_a, im_a, re_b, im_b], zero for k ≥ K.
-// grid (ceil(rows/ST_ROWS), ceil(Kp/ST3T_TK)).
 __global__ void __launch_bounds__(ST_THREADS)
 pair_tc_adj_stage3t(const float* __restrict__ p, const float* __restrict__ msk,
                     const float* __restrict__ Wc, const float* __restrict__ Ws,
                     float* __restrict__ shat4, int rows, int P, int K, int Kp, int S) {
-  extern __shared__ float4 smem4[];
-  float* p_s = reinterpret_cast<float*>(smem4);  // [ST_ROWS][S]
-  const int row0 = blockIdx.x * ST_ROWS;
-  const int nr = min(ST_ROWS, rows - row0);
-#pragma unroll 4
-  for (int e = threadIdx.x; e < ST_ROWS * S; e += ST_THREADS) {
-    const int r = e / S, row = row0 + r;
-    float v = 0.f;
-    if (r < nr) {
-      v = rnd(p[(size_t)row * S + e % S]);
-      if (row & 1) v *= msk[(row >> 1) % P];
-    }
-    p_s[e] = v;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int kk = warp; kk < ST3T_TK; kk += ST_THREADS / 32) {
-    const int k = blockIdx.y * ST3T_TK + kk;
-    if (k >= Kp) break;
-    float re[ST_ROWS] = {}, im[ST_ROWS] = {};
-    if (k < K) {
-      const float* w_c = Wc + (size_t)k * S;
-      const float* w_s = Ws + (size_t)k * S;
-#pragma unroll 4
-      for (int s = lane; s < S; s += 32) {
-        const float wc = rnd(w_c[s]), ws = rnd(w_s[s]);
-#pragma unroll
-        for (int r = 0; r < ST_ROWS; ++r) {
-          re[r] += p_s[r * S + s] * wc;
-          im[r] += p_s[r * S + s] * ws;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < ST_ROWS; ++r) {
-        for (int off = 16; off > 0; off >>= 1) {
-          re[r] += __shfl_xor_sync(0xffffffffu, re[r], off);
-          im[r] += __shfl_xor_sync(0xffffffffu, im[r], off);
-        }
-      }
-    }
-    if (lane < nr) {
-      float vr = 0.f, vi = 0.f;
-#pragma unroll
-      for (int r = 0; r < ST_ROWS; ++r)
-        if (r == lane) { vr = re[r]; vi = im[r]; }
-      const int row = row0 + lane;
-      float* dst = shat4 + ((size_t)(row >> 1) * Kp + k) * 4 + 2 * (row & 1);
-      dst[0] = rnd(vr);
-      dst[1] = rnd(-vi);
-    }
-  }
+  pair_stage3t<true>(p, msk, Wc, Ws, shat4, rows, P, K, Kp, S);
 }
 
 __global__ void __launch_bounds__(TC_THREADS, 1)

@@ -52,6 +52,20 @@
 // deterministic).
 //
 // Padded rows, columns and frequencies are zero in the tables.
+//
+// Split-bf16 route (float32 operands, SPLIT = true; radon_pair_split.cu).
+// One bf16 product keeps ~3 significant digits, far from the f32 contract
+// (1e-5 relative). Each stage-1 / 1ᵀ operand x is carried as hi = bf16(x)
+// and lo = bf16(x − hi) (x − hi is exact in f32), and every 16-deep step
+// issues three wgmmas into the same f32 accumulators, hi·hi, hi·lo, lo·hi
+// (lo·lo, ~2⁻¹⁸ relative, is dropped). The tables hold T̂ as hi and lo
+// bf16 planes and φ in f32 (tc_split_tables): φ feeds stage 2 / 2ᵀ on the
+// CUDA cores, where a split φ would only add error. Stages 2, 3 and their
+// transposes stay f32 on the CUDA cores; Ŝ and h are never rounded (h is
+// split into hi and lo as it is written to shared memory). The forward is
+// tc_fwd with doubled ring stages (F and T̂ each hi + lo: 64 KB); the
+// adjoint is tc_adj_split, whose hi + lo T̂ and h and f32 φ need a
+// 128-column output tile and a one-deep φ stage to fit in shared memory.
 
 #pragma once
 
@@ -82,6 +96,21 @@ __host__ __device__ constexpr uint32_t ad_raw(int M) { return AD_T_BYTES + M * A
 constexpr size_t FW_SMEM = FW_STAGES * FW_STAGE + 1024;
 __host__ __device__ constexpr size_t ad_smem(int M) {
   return AD_RAW_STAGES * ad_raw(M) + AD_H_STAGES * AD_H_BYTES + 1024;
+}
+// forward ring stage of the split route: F and T̂ tiles, each hi then lo; an
+// f32 φ tile [128 rows][128 interleaved columns] is exactly one such stage
+constexpr uint32_t FW_SPLIT_STAGE = 2 * FW_STAGE;
+constexpr size_t FW_SPLIT_SMEM = FW_STAGES * FW_SPLIT_STAGE + 1024;
+// split adjoint: output tiles of 128 image columns; a ring of three T̂
+// stages (hi, lo: [128 columns][64] K-major each), two h stages (hi, lo:
+// [128 rows][64]) and one stage of the M f32 φ chunks [128 rows][64]
+constexpr int AS_BN = 128;
+constexpr uint32_t AS_T_BYTES = 2 * AS_BN * TC_BK * 2;
+constexpr uint32_t AS_H_BYTES = 2 * TC_BM * TC_BK * 2;
+constexpr uint32_t AS_PHI_BYTES = TC_BM * TC_BK * 4;
+constexpr int AS_T_STAGES = 3, AS_H_STAGES = 2;
+__host__ __device__ constexpr size_t as_smem(int M) {
+  return AS_T_STAGES * AS_T_BYTES + AS_H_STAGES * AS_H_BYTES + M * AS_PHI_BYTES + 1024;
 }
 
 constexpr int ST_THREADS = 256;  // threads of the grid-stride kernels
@@ -224,6 +253,13 @@ __device__ __forceinline__ uint32_t f2_to_bf2(float re, float im) {
   return u;
 }
 
+// (re, im) as bf16 hi and lo pairs: hi = bf16(x), lo = bf16(x − hi)
+__device__ __forceinline__ void f2_split(float re, float im, uint32_t& hi, uint32_t& lo) {
+  hi = f2_to_bf2(re, im);
+  const float2 h = bf2_to_f2(hi);
+  lo = f2_to_bf2(re - h.x, im - h.y);
+}
+
 // ---------------------------------------------------------------------------
 // Per-plan trig tables: tab (1 + M, G, Np, Kp) of bf16 (re, im) pairs:
 //   t = 0: T̂   = (spec·cos, −spec·sin)(pos[g, c]·kf)
@@ -232,6 +268,27 @@ __device__ __forceinline__ uint32_t f2_to_bf2(float re, float im) {
 // it (both products rounded, no FMA contraction), precise sincosf; zero for
 // rows ≥ N and k ≥ K. Grid-stride over the table; 256 threads.
 // ---------------------------------------------------------------------------
+// (re, im) of table t at element i of one (P, Np, Kp) plane
+__device__ __forceinline__ float2 tc_trig(const float* __restrict__ pos,
+                                          const float* __restrict__ sh0,
+                                          const float* __restrict__ sh1,
+                                          const float* __restrict__ spec, int t, size_t i,
+                                          int P, int N, int Np, int K, int Kp, float kscale) {
+  const int k = (int)(i % Kp);
+  const int row = (int)((i / Kp) % Np);
+  const int p = (int)(i / ((size_t)Kp * Np));
+  if (row >= N || k >= K) return make_float2(0.f, 0.f);
+  const float* src = t == 0 ? pos : (t == 1 ? sh0 : sh1);
+  const float kf = __fmul_rn((float)k, kscale);
+  float s, c;
+  sincosf(__fmul_rn(src[(size_t)p * N + row], kf), &s, &c);
+  if (t == 0) {
+    const float sp = spec[k];
+    return make_float2(sp * c, -sp * s);
+  }
+  return make_float2(c, s);
+}
+
 template <int M>
 __device__ __forceinline__ void tc_tables(const float* __restrict__ pos,
                                           const float* __restrict__ sh0,
@@ -239,39 +296,53 @@ __device__ __forceinline__ void tc_tables(const float* __restrict__ pos,
                                           const float* __restrict__ spec,
                                           uint32_t* __restrict__ tab, int P, int N, int Np,
                                           int K, int Kp, float kscale) {
-  const size_t n = (size_t)(1 + M) * P * Np * Kp;
+  const size_t plane = (size_t)P * Np * Kp, n = (1 + M) * plane;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(i % Kp);
-    const int row = (int)((i / Kp) % Np);
-    const int p = (int)((i / ((size_t)Kp * Np)) % P);
-    const int t = (int)(i / ((size_t)Kp * Np * P));
-    float re = 0.f, im = 0.f;
-    if (row < N && k < K) {
-      const float* src = t == 0 ? pos : (t == 1 ? sh0 : sh1);
-      const float kf = __fmul_rn((float)k, kscale);
-      float s, c;
-      sincosf(__fmul_rn(src[(size_t)p * N + row], kf), &s, &c);
-      if (t == 0) {
-        const float sp = spec[k];
-        re = sp * c;
-        im = -sp * s;
-      } else {
-        re = c;
-        im = s;
-      }
+    const float2 v = tc_trig(pos, sh0, sh1, spec, (int)(i / plane), i % plane, P, N, Np, K,
+                             Kp, kscale);
+    tab[i] = f2_to_bf2(v.x, v.y);
+  }
+}
+
+// The split route's tables, the same values: T (2, G, Np, Kp) bf16 (re, im)
+// pairs, T̂'s hi plane then its lo plane; phi (M, G, Np, Kp) f32 (re, im)
+// pairs, each member's φ unrounded. Grid-stride; 256 threads.
+template <int M>
+__device__ __forceinline__ void tc_split_tables(const float* __restrict__ pos,
+                                                const float* __restrict__ sh0,
+                                                const float* __restrict__ sh1,
+                                                const float* __restrict__ spec,
+                                                uint32_t* __restrict__ T,
+                                                float2* __restrict__ phi, int P, int N, int Np,
+                                                int K, int Kp, float kscale) {
+  const size_t plane = (size_t)P * Np * Kp, n = (1 + M) * plane;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int t = (int)(i / plane);
+    const size_t e = i % plane;
+    const float2 v = tc_trig(pos, sh0, sh1, spec, t, e, P, N, Np, K, Kp, kscale);
+    if (t == 0) {
+      uint32_t hi, lo;
+      f2_split(v.x, v.y, hi, lo);
+      T[e] = hi;
+      T[plane + e] = lo;
+    } else {
+      phi[(t - 1) * plane + e] = v;
     }
-    tab[i] = f2_to_bf2(re, im);
   }
 }
 
 // F in bf16, zero-padded to (B, Np, Np): fb[b, r, c] = F(r, c), where
 // F(r, c) = f[b, r, c] (x group) or f[b, c, r] (y group, transpose = 1).
-// 32x32 tiles through shared memory keep both sides coalesced.
+// 32x32 tiles through shared memory keep both sides coalesced. With fb_lo
+// (the split route) fb gets hi = bf16(F) and fb_lo the same layout of
+// lo = bf16(F − hi).
 // grid (Np/32, Np/32, B), block (32, 8).
 __device__ __forceinline__ void tc_prep(const float* __restrict__ f,
                                         __nv_bfloat16* __restrict__ fb, int N, int Np,
-                                        int transpose) {
+                                        int transpose,
+                                        __nv_bfloat16* __restrict__ fb_lo = nullptr) {
   __shared__ float tile[32][33];
   const int b = blockIdx.z, y0 = blockIdx.y * 32, x0 = blockIdx.x * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -281,12 +352,14 @@ __device__ __forceinline__ void tc_prep(const float* __restrict__ f,
     tile[yy][tx] = (y < N && x < N) ? src[(size_t)y * N + x] : 0.f;
   }
   __syncthreads();
-  __nv_bfloat16* dst = fb + (size_t)b * Np * Np;
+  const size_t off = (size_t)b * Np * Np;
   for (int yy = ty; yy < 32; yy += 8) {
-    if (transpose)
-      dst[(size_t)(x0 + yy) * Np + y0 + tx] = __float2bfloat16_rn(tile[tx][yy]);
-    else
-      dst[(size_t)(y0 + yy) * Np + x0 + tx] = __float2bfloat16_rn(tile[yy][tx]);
+    const float v = transpose ? tile[tx][yy] : tile[yy][tx];
+    const size_t at = off + (transpose ? (size_t)(x0 + yy) * Np + y0 + tx
+                                       : (size_t)(y0 + yy) * Np + x0 + tx);
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    fb[at] = hi;
+    if (fb_lo != nullptr) fb_lo[at] = __float2bfloat16_rn(v - __bfloat162float(hi));
   }
 }
 
@@ -298,31 +371,44 @@ __device__ __forceinline__ void tc_prep(const float* __restrict__ f,
 // apart). `on_last()` runs while the last chunk's products do; it may
 // start and commit cp.async copies into the stages that chunk does not use
 // (stage (nk − 1) % FW_STAGES), which have landed when this returns.
-template <bool KMAJOR_B, class OnLast>
+// SPLIT (the split-bf16 route): A and B each have a lo plane a_lo / b_lo
+// elements past the hi one; a stage holds [A hi][A lo][B hi][B lo]
+// (FW_SPLIT_STAGE bytes), and each 16-deep step runs A_hi·B_hi, A_hi·B_lo,
+// A_lo·B_hi into the same accumulators.
+template <bool KMAJOR_B, bool SPLIT = false, class OnLast>
 __device__ __forceinline__ void mma_tile_128(float (&acc)[FW_BN / 2],
                                              const __nv_bfloat16* __restrict__ A, size_t lda,
                                              const __nv_bfloat16* __restrict__ Bm, size_t ldb,
-                                             int n0, int nk, uint32_t base, OnLast on_last) {
+                                             int n0, int nk, uint32_t base, OnLast on_last,
+                                             size_t a_lo = 0, size_t b_lo = 0) {
+  constexpr int PARTS = SPLIT ? 2 : 1;
+  constexpr uint32_t STAGE = SPLIT ? FW_SPLIT_STAGE : FW_STAGE;
   const int tid = threadIdx.x, wg = tid >> 7;
   // stage: A rows [128][64] K-major; B MN-major [2 column blocks][64 depth][64]
   // or K-major [128 columns][64 depth], 128-byte swizzled
   auto load = [&](int kc, uint32_t stage) {
     const int c0 = kc * TC_BK;
-    for (int e = tid; e < TC_BM * 8; e += TC_THREADS) {
-      const int m = e >> 3, j = e & 7;
-      cp_async16(stage + swz(m, j), A + (size_t)m * lda + c0 + j * 8, 16);
-    }
-    const uint32_t sb = stage + FW_A_BYTES;
-    if (KMAJOR_B) {
-      for (int e = tid; e < FW_BN * 8; e += TC_THREADS) {
-        const int nn = e >> 3, j = e & 7;
-        cp_async16(sb + swz(nn, j), Bm + (size_t)(n0 + nn) * ldb + c0 + j * 8, 16);
+#pragma unroll
+    for (int h = 0; h < PARTS; ++h) {
+      const __nv_bfloat16* Ah = A + h * a_lo;
+      const uint32_t sa = stage + h * FW_A_BYTES;
+      for (int e = tid; e < TC_BM * 8; e += TC_THREADS) {
+        const int m = e >> 3, j = e & 7;
+        cp_async16(sa + swz(m, j), Ah + (size_t)m * lda + c0 + j * 8, 16);
       }
-    } else {
-      for (int e = tid; e < TC_BK * (FW_BN / 8); e += TC_THREADS) {
-        const int j = e & 7, nb = (e >> 3) % (FW_BN / 64), kk = e / (FW_BN / 8);
-        cp_async16(sb + nb * (TC_BK * 128) + swz(kk, j),
-                   Bm + (size_t)(c0 + kk) * ldb + n0 + nb * 64 + j * 8, 16);
+      const __nv_bfloat16* Bh = Bm + h * b_lo;
+      const uint32_t sb = stage + PARTS * FW_A_BYTES + h * FW_B_BYTES;
+      if (KMAJOR_B) {
+        for (int e = tid; e < FW_BN * 8; e += TC_THREADS) {
+          const int nn = e >> 3, j = e & 7;
+          cp_async16(sb + swz(nn, j), Bh + (size_t)(n0 + nn) * ldb + c0 + j * 8, 16);
+        }
+      } else {
+        for (int e = tid; e < TC_BK * (FW_BN / 8); e += TC_THREADS) {
+          const int j = e & 7, nb = (e >> 3) % (FW_BN / 64), kk = e / (FW_BN / 8);
+          cp_async16(sb + nb * (TC_BK * 128) + swz(kk, j),
+                     Bh + (size_t)(c0 + kk) * ldb + n0 + nb * 64 + j * 8, 16);
+        }
       }
     }
     cp_async_commit();
@@ -333,28 +419,33 @@ __device__ __forceinline__ void mma_tile_128(float (&acc)[FW_BN / 2],
   // one commit group per chunk (empty past the end), so that waiting for
   // all but the newest FW_STAGES - 2 groups means chunk kc has landed
   for (int st = 0; st < FW_STAGES - 1; ++st) {
-    if (st < nk) load(st, base + st * FW_STAGE);
+    if (st < nk) load(st, base + st * STAGE);
     else cp_async_commit();
   }
   for (int kc = 0; kc < nk; ++kc) {
-    const uint32_t stage = base + (kc % FW_STAGES) * FW_STAGE;
+    const uint32_t stage = base + (kc % FW_STAGES) * STAGE;
     cp_async_wait<FW_STAGES - 2>();
     fence_proxy_async();
     __syncthreads();  // chunk kc in shared memory; chunk kc-1's products done
     const int next = kc + FW_STAGES - 1;  // into the stage chunk kc-1 used
-    if (next < nk) load(next, base + (next % FW_STAGES) * FW_STAGE);
+    if (next < nk) load(next, base + (next % FW_STAGES) * STAGE);
     else cp_async_commit();
     if (kc == nk - 1) on_last();
-    const uint32_t sa = stage + wg * (64 * 128), sb = stage + FW_A_BYTES;
+    const uint32_t sa = stage + wg * (64 * 128), sb = stage + PARTS * FW_A_BYTES;
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < TC_BK / 16; ++ks) {
-      if (KMAJOR_B)
-        wgmma_n128<0>(acc, desc_sw128(sa + ks * 32, 16, 1024), desc_sw128(sb + ks * 32, 16, 1024));
-      else
-        wgmma_n128<1>(acc, desc_sw128(sa + ks * 32, 16, 1024),
-                      desc_sw128(sb + ks * 2048, TC_BK * 128, 1024));
+      auto da = [&](uint32_t a) { return desc_sw128(a + ks * 32, 16, 1024); };
+      auto db = [&](uint32_t b) {
+        return KMAJOR_B ? desc_sw128(b + ks * 32, 16, 1024)
+                        : desc_sw128(b + ks * 2048, TC_BK * 128, 1024);
+      };
+      wgmma_n128<KMAJOR_B ? 0 : 1>(acc, da(sa), db(sb));
+      if constexpr (SPLIT) {  // hi·lo, then lo·hi
+        wgmma_n128<KMAJOR_B ? 0 : 1>(acc, da(sa), db(sb + FW_B_BYTES));
+        wgmma_n128<KMAJOR_B ? 0 : 1>(acc, da(sa + FW_A_BYTES), db(sb));
+      }
     }
     wgmma_commit();
     wgmma_wait0();
@@ -368,13 +459,18 @@ __device__ __forceinline__ void mma_tile_128(float (&acc)[FW_BN / 2],
 // Forward stages 1+2. grid ((2Kp/FW_BN)·P, B·Np/TC_BM); block = 2 warpgroups;
 // FW_SMEM bytes of dynamic shared memory. part layout (R, B, P, M, K, 2):
 // one partial Ŝ per row tile rt < R = Np/128. sgn (P) is read for M = 2 only.
+// SPLIT: fb holds F's hi plane then its lo plane (2, B, Np, Np), tab T̂'s
+// (2, P, Np, 2Kp) hi and lo planes, and phi the M f32 φ tables (M, P, Np,
+// 2Kp); FW_SPLIT_SMEM bytes of dynamic shared memory.
 // ---------------------------------------------------------------------------
-template <int M>
+template <int M, bool SPLIT = false>
 __device__ __forceinline__ void tc_fwd(const __nv_bfloat16* __restrict__ fb,
                                        const __nv_bfloat16* __restrict__ tab,
                                        const float* __restrict__ sgn, float* __restrict__ part,
-                                       int B, int Np, int P, int K, int K2p) {
+                                       int B, int Np, int P, int K, int K2p,
+                                       const float* __restrict__ phi_tab = nullptr) {
   static_assert(M == 1 || M == 2, "one or two members per row group");
+  constexpr uint32_t STAGE = SPLIT ? FW_SPLIT_STAGE : FW_STAGE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -396,16 +492,27 @@ __device__ __forceinline__ void tc_fwd(const __nv_bfloat16* __restrict__ fb,
   int phi_slot[M];
 #pragma unroll
   for (int t = 0; t < M; ++t) phi_slot[t] = (last + 1 + t) % FW_STAGES;
+  // (SPLIT: f32 rows of 512 bytes, 16-byte chunk c stored at c ^ 2·(row % 8),
+  // which spreads a warp's eight rows over the banks)
   auto load_phi = [&]() {
 #pragma unroll
     for (int t = 0; t < M; ++t) {
-      const __nv_bfloat16* src =
-          tab + (t + 1) * tsz + ((size_t)p * Np + (size_t)rt * TC_BM) * K2p + n0;
-      const uint32_t dst = base + phi_slot[t] * FW_STAGE;
-      for (int e = tid; e < TC_BM * (FW_BN / 8); e += TC_THREADS) {
-        const int row = e / (FW_BN / 8), c = e % (FW_BN / 8);
-        cp_async16(dst + row * (FW_BN * 2) + ((c ^ (row & 7)) << 4),
-                   src + (size_t)row * K2p + c * 8, 16);
+      const size_t at = ((size_t)p * Np + (size_t)rt * TC_BM) * K2p + n0;
+      const uint32_t dst = base + phi_slot[t] * STAGE;
+      if constexpr (SPLIT) {
+        const float* src = phi_tab + t * tsz + at;
+        for (int e = tid; e < TC_BM * (FW_BN / 4); e += TC_THREADS) {
+          const int row = e / (FW_BN / 4), c = e % (FW_BN / 4);
+          cp_async16(dst + row * (FW_BN * 4) + ((c ^ ((row & 7) << 1)) << 4),
+                     src + (size_t)row * K2p + c * 4, 16);
+        }
+      } else {
+        const __nv_bfloat16* src = tab + (t + 1) * tsz + at;
+        for (int e = tid; e < TC_BM * (FW_BN / 8); e += TC_THREADS) {
+          const int row = e / (FW_BN / 8), c = e % (FW_BN / 8);
+          cp_async16(dst + row * (FW_BN * 2) + ((c ^ (row & 7)) << 4),
+                     src + (size_t)row * K2p + c * 8, 16);
+        }
       }
     }
     cp_async_commit();
@@ -413,20 +520,27 @@ __device__ __forceinline__ void tc_fwd(const __nv_bfloat16* __restrict__ fb,
 
   // stage 1: ĝ of F rows [rt·128, +128) against T̂_p columns [n0, +128)
   float acc[FW_BN / 2];
-  mma_tile_128<false>(acc, fb + ((size_t)b * Np + (size_t)rt * TC_BM) * Np, Np,
-                      tab + (size_t)p * Np * K2p, K2p, n0, nk, base, load_phi);
+  mma_tile_128<false, SPLIT>(acc, fb + ((size_t)b * Np + (size_t)rt * TC_BM) * Np, Np,
+                             tab + (size_t)p * Np * K2p, K2p, n0, nk, base, load_phi,
+                             (size_t)B * Np * Np, tsz);
 
   // stage 2 on the f32 accumulators: thread holds (gr, gi) of frequency
   // n0/2 + 4j + lane%4 for tile rows ra and ra + 8
   const float sg = M == 2 ? sgn[p] : 1.f;
-  float* red = reinterpret_cast<float*>(sgen + last * FW_STAGE);
+  float* red = reinterpret_cast<float*>(sgen + last * STAGE);
   const int ra = wg * 64 + warp * 16 + (lane >> 2), rb = ra + 8;
   // [64 k][M · (re, im)] per warp
   float* myred = red + (wg * 4 + warp) * (FW_BN / 2) * (2 * M);
   auto phi = [&](int t, int r, int j) {
-    const uint8_t* tile = sgen + phi_slot[t] * FW_STAGE;
-    return bf2_to_f2(*reinterpret_cast<const uint32_t*>(
-        tile + r * (FW_BN * 2) + ((j ^ (r & 7)) << 4) + (lane & 3) * 4));
+    const uint8_t* tile = sgen + phi_slot[t] * STAGE;
+    if constexpr (SPLIT) {
+      const int c = 2 * j + ((lane & 3) >> 1);
+      return *reinterpret_cast<const float2*>(
+          tile + r * (FW_BN * 4) + ((c ^ ((r & 7) << 1)) << 4) + (lane & 1) * 8);
+    } else {
+      return bf2_to_f2(*reinterpret_cast<const uint32_t*>(
+          tile + r * (FW_BN * 2) + ((j ^ (r & 7)) << 4) + (lane & 3) * 4));
+    }
   };
 #pragma unroll
   for (int j = 0; j < FW_BN / 8; ++j) {
@@ -630,6 +744,204 @@ __device__ __forceinline__ void tc_adj(const float* __restrict__ shat,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split adjoint stages 2ᵀ + 1ᵀ (float32 operands): as tc_adj, with h built
+// in f32 from f32 Ŝ and f32 φ and written to shared memory as hi and lo
+// bf16 planes, T̂ read as its hi and lo planes, and three wgmmas per 16-deep
+// step (h_hi·T̂_hi, h_hi·T̂_lo, h_lo·T̂_hi). shat (B, G, Kp, 2M) f32
+// unrounded; tab (2, G, Np, 2Kp) bf16 [hi, lo]; phi (M, G, Np, 2Kp) f32.
+// grid (B·Np/TC_BM row tiles, ⌈N/AS_BN⌉ column tiles, G slices); TC_THREADS
+// threads, as_smem(M) bytes of dynamic shared memory. Each thread copies,
+// and alone reads, the φ of its own four h units, so one φ stage suffices:
+// chunk i+2's φ is loaded right after chunk i+1's h is built.
+// Each chunk's products go to a fresh accumulator that is then added to the
+// running sum on the CUDA cores: the tensor cores' f32 accumulation is not
+// round-to-nearest, and its error grows with the chain (measured on an
+// H100: 2.9e-5 relative over a 138-chunk slice, against 3.5e-6 over 17).
+// ---------------------------------------------------------------------------
+template <int M>
+__device__ __forceinline__ void tc_adj_split(const float* __restrict__ shat,
+                                             const __nv_bfloat16* __restrict__ tab,
+                                             const float* __restrict__ phi,
+                                             const float* __restrict__ sgn,
+                                             float* __restrict__ dst, int B, int N, int Np,
+                                             int P, int K2p, int G, int transpose) {
+  static_assert(M == 1 || M == 2, "one or two members per row group");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sgen = smem_raw + (base - raw);
+  const uint32_t h_base = base + AS_T_STAGES * AS_T_BYTES;
+  const uint32_t phi_off = AS_T_STAGES * AS_T_BYTES + AS_H_STAGES * AS_H_BYTES;
+
+  const int R = Np / TC_BM;
+  const int b = blockIdx.x / R, rt = blockIdx.x % R;
+  const int c0 = blockIdx.y * AS_BN;
+  const int g = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int Kp = K2p / 2;
+  const int nkc = K2p / TC_BK;
+  const int i_lo = (int)((long long)P * nkc * g / G);
+  const int n = (int)((long long)P * nkc * (g + 1) / G) - i_lo;
+  const size_t tsz = (size_t)P * Np * K2p;
+
+  constexpr int UNITS = TC_BM * 8 / TC_THREADS;
+  const int j = tid & 7, m0 = tid >> 3;
+  // T̂ chunk i: [128 columns c][64] K-major, swizzled, hi then lo
+  auto load_t = [&](int i) {
+    if (i < n) {
+      const int p = (i_lo + i) / nkc, kri0 = (i_lo + i) % nkc * TC_BK;
+      const uint32_t ts = base + (i % AS_T_STAGES) * AS_T_BYTES;
+      const __nv_bfloat16* T = tab + ((size_t)p * Np + c0) * K2p + kri0;
+      for (int e = tid; e < 2 * AS_BN * 8; e += TC_THREADS) {
+        const int h = e / (AS_BN * 8), nn = (e >> 3) % AS_BN, jj = e & 7;
+        cp_async16(ts + h * (AS_T_BYTES / 2) + swz(nn, jj),
+                   T + h * tsz + (size_t)nn * K2p + jj * 8, 16);
+      }
+    }
+    cp_async_commit();  // one group per chunk, empty past the end
+  };
+  // this thread's φ of chunk i: rows m0 + 32u, frequencies 4j .. 4j+3 of the
+  // chunk ((re, im) f32, 32 bytes per member and row)
+  auto load_phi = [&](int i) {
+    if (i < n) {
+      const int p = (i_lo + i) / nkc, kri0 = (i_lo + i) % nkc * TC_BK;
+      const float* PH = phi + ((size_t)p * Np + (size_t)rt * TC_BM) * K2p + kri0 + j * 8;
+#pragma unroll
+      for (int u = 0; u < UNITS; ++u) {
+        const int m = m0 + u * (TC_THREADS / 8);
+#pragma unroll
+        for (int t = 0; t < M; ++t) {
+          const uint32_t d = base + phi_off + t * AS_PHI_BYTES + m * (TC_BK * 4) + j * 32;
+          const float* s = PH + t * tsz + (size_t)m * K2p;
+          cp_async16(d, s, 16);
+          cp_async16(d + 16, s + 4, 16);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto load_shat = [&](int i, float (&sv)[8 * M], float& sg) {
+    if (i < n) {
+      const int p = (i_lo + i) / nkc, k0 = (i_lo + i) % nkc * (TC_BK / 2);
+      const float4* SV = reinterpret_cast<const float4*>(
+          shat + (((size_t)b * P + p) * Kp + k0 + j * 4) * (2 * M));
+#pragma unroll
+      for (int q = 0; q < 2 * M; ++q) {
+        const float4 v = __ldg(SV + q);
+        sv[4 * q] = v.x;
+        sv[4 * q + 1] = v.y;
+        sv[4 * q + 2] = v.z;
+        sv[4 * q + 3] = v.w;
+      }
+      sg = M == 2 ? __ldg(sgn + p) : 1.f;
+    }
+  };
+  auto build_h = [&](int i, const float (&sv)[8 * M], float sg) {
+    uint8_t* hs = sgen + (h_base - base) + (i % AS_H_STAGES) * AS_H_BYTES;
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int m = m0 + u * (TC_THREADS / 8);
+      float w[M][8];
+#pragma unroll
+      for (int t = 0; t < M; ++t) {
+        const float4* ps =
+            reinterpret_cast<const float4*>(sgen + phi_off + t * AS_PHI_BYTES + m * (TC_BK * 4) + j * 32);
+        const float4 a = ps[0], c = ps[1];
+        w[t][0] = a.x; w[t][1] = a.y; w[t][2] = a.z; w[t][3] = a.w;
+        w[t][4] = c.x; w[t][5] = c.y; w[t][6] = c.z; w[t][7] = c.w;
+      }
+      uint32_t hv[4], lv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* s = sv + q * (2 * M);
+        const float ca = w[0][2 * q], sa = w[0][2 * q + 1];
+        float hr = s[0] * ca + s[1] * sa;
+        float hi = -(s[0] * sa) + s[1] * ca;
+        if (M == 2) {
+          const float cb = w[M - 1][2 * q], sb = w[M - 1][2 * q + 1];
+          hr = hr + (s[2 * M - 2] * cb + s[2 * M - 1] * sb);
+          hi = hi + sg * (-(s[2 * M - 2] * sb) + s[2 * M - 1] * cb);
+        }
+        f2_split(hr, hi, hv[q], lv[q]);
+      }
+      *reinterpret_cast<uint4*>(hs + swz(m, j)) = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<uint4*>(hs + AS_H_BYTES / 2 + swz(m, j)) =
+          make_uint4(lv[0], lv[1], lv[2], lv[3]);
+    }
+  };
+
+  float acc[AS_BN / 2], tot[AS_BN / 2];
+#pragma unroll
+  for (int i = 0; i < AS_BN / 2; ++i) acc[i] = tot[i] = 0.f;
+  float sv_c[8 * M], sv_n[8 * M];
+  float sg_c = 0.f, sg_n = 0.f;
+  // commit groups, in order: T̂ 0, T̂ 1, φ 0, φ 1, then per iteration i
+  // T̂ i+2 and φ i+2
+  load_t(0);
+  load_t(1);
+  load_phi(0);
+  load_shat(0, sv_c, sg_c);
+  load_shat(1, sv_n, sg_n);
+  cp_async_wait_all();
+  if (n > 0) build_h(0, sv_c, sg_c);
+  load_phi(1);
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int q = 0; q < 8 * M; ++q) sv_c[q] = sv_n[q];
+    sg_c = sg_n;
+    cp_async_wait<2>();  // all but T̂ i+1 and φ i+1: T̂ i has landed
+    fence_proxy_async();
+    __syncthreads();  // h and T̂ of chunk i in shared memory; chunk i-1's products done
+    load_t(i + 2);    // into the stage chunk i-1 used
+    load_shat(i + 2, sv_n, sg_n);
+    const uint32_t sa = h_base + (i % AS_H_STAGES) * AS_H_BYTES + wg * (64 * 128);
+    const uint32_t sb = base + (i % AS_T_STAGES) * AS_T_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < TC_BK / 16; ++ks) {
+      const uint64_t ah = desc_sw128(sa + ks * 32, 16, 1024);
+      const uint64_t al = desc_sw128(sa + AS_H_BYTES / 2 + ks * 32, 16, 1024);
+      const uint64_t bh = desc_sw128(sb + ks * 32, 16, 1024);
+      const uint64_t bl = desc_sw128(sb + AS_T_BYTES / 2 + ks * 32, 16, 1024);
+      wgmma_n128<0>(acc, ah, bh);
+      wgmma_n128<0>(acc, ah, bl);
+      wgmma_n128<0>(acc, al, bh);
+    }
+    wgmma_commit();
+    if (i + 1 < n) {  // overlaps the products of chunk i
+      cp_async_wait<1>();  // all but T̂ i+2: this thread's φ i+1 has landed
+      build_h(i + 1, sv_c, sg_c);
+    }
+    load_phi(i + 2);  // this thread's reads of φ i+1 are done
+    wgmma_wait0();
+    fence_acc(acc);
+#pragma unroll
+    for (int q = 0; q < AS_BN / 2; ++q) {
+      tot[q] += acc[q];
+      acc[q] = 0.f;
+    }
+  }
+
+  float* ob = dst + ((size_t)g * B + b) * N * N;
+  const int r1 = rt * TC_BM + wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int jj = 0; jj < AS_BN / 8; ++jj) {
+    const int c = c0 + jj * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r1 + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = c + e;
+        if (r < N && cc < N)
+          ob[transpose ? (size_t)cc * N + r : (size_t)r * N + cc] = tot[4 * jj + 2 * h + e];
+      }
+    }
+  }
+}
+
 // C[r, c] = Σ_d A[r, d] B(d, c), one 128 x 128 tile per block: A (Mp x
 // 64·nk) bf16 row-major, Mp = 128·⌈M/128⌉ rows, zero-padded; B MN-major
 // (64·nk rows of ldb ≥ 128·⌈N/128⌉ columns) or, for KMAJOR_B, K-major
@@ -697,6 +1009,157 @@ __device__ __forceinline__ void tc_w_prep(const float* __restrict__ Wc,
     float v = 0.f;
     if (k < K && s < S) v = (row & 1) ? -Ws[(size_t)k * S + s] : Wc[(size_t)k * S + s];
     wb[i] = __float2bfloat16_rn(v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Mirror-pair stages 3 and 3ᵀ on the CUDA cores (M = 2), for both pair
+// routes: ROUND rounds Ŝ, W and p to bf16 where the plain version does (the
+// bf16 route); without it everything stays f32 (the split route).
+// ---------------------------------------------------------------------------
+constexpr int ST_ROWS = 8;       // rows per stage-3 / 3ᵀ block
+constexpr int ST3T_TK = 32;      // frequencies per stage-3ᵀ block (4 per warp)
+constexpr int ST3_COLS = 64;     // output columns per stage-3 block, two per thread
+constexpr int ST3_SPLIT = ST_THREADS / (ST3_COLS / 2);  // ways its k loop is split
+
+template <bool ROUND>
+__device__ __forceinline__ float rnd_if(float x) {
+  return ROUND ? rnd(x) : x;
+}
+
+// Forward stage 3: Ŝ = Σ_rt part[rt] (row-tile order), rounded for ROUND;
+// then out[row, s] = Σ_k Re Ŝ Wc[k, s] − Im Ŝ Ws[k, s] for ST_ROWS rows
+// (row = b·2P + 2p + m) and ST3_COLS columns per block. Ŝ sits in shared
+// memory as [k][row][re, im], so one 16-byte read serves two rows; each
+// thread owns two columns, and the k loop is split ST3_SPLIT ways across the
+// block (partial sums added in a fixed order).
+// grid (ceil(rows/ST_ROWS), ceil(S/ST3_COLS)); ST_THREADS threads;
+// ST_ROWS·(2K + ST3_SPLIT·ST3_COLS) floats of dynamic shared memory.
+template <bool ROUND>
+__device__ __forceinline__ void pair_stage3(const float* __restrict__ part,
+                                            const float* __restrict__ Wc,
+                                            const float* __restrict__ Ws,
+                                            float* __restrict__ out, int rows, int K, int S,
+                                            int R) {
+  extern __shared__ float4 smem4[];
+  float* s_s = reinterpret_cast<float*>(smem4);  // [K][ST_ROWS][2]
+  float* red = s_s + ST_ROWS * 2 * K;            // [ST3_SPLIT][ST_ROWS][ST3_COLS]
+  const int row0 = blockIdx.x * ST_ROWS;
+  const int nr = min(ST_ROWS, rows - row0);
+  const size_t plane = (size_t)rows * K * 2;
+  const float* src = part + (size_t)row0 * K * 2;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ST_ROWS * 2 * K; e += ST_THREADS) {
+    const int r = e / (2 * K), kk = e % (2 * K);
+    float v = 0.f;
+    if (r < nr)
+      for (int t = 0; t < R; ++t) v += src[t * plane + e];
+    s_s[((kk >> 1) * ST_ROWS + r) * 2 + (kk & 1)] = rnd_if<ROUND>(v);
+  }
+  __syncthreads();
+  const int q = threadIdx.x / (ST3_COLS / 2), c2 = threadIdx.x % (ST3_COLS / 2);
+  const int s = blockIdx.y * ST3_COLS + 2 * c2;
+  const int kq = ceil_div(K, ST3_SPLIT);
+  const int k_hi = min(K, (q + 1) * kq);
+  float acc[ST_ROWS][2] = {};
+  if (s < S) {
+    const bool two = s + 1 < S;
+#pragma unroll 4
+    for (int k = q * kq; k < k_hi; ++k) {
+      const float* wc = Wc + (size_t)k * S + s;
+      const float* ws = Ws + (size_t)k * S + s;
+      const float wc0 = rnd_if<ROUND>(wc[0]), ws0 = rnd_if<ROUND>(ws[0]);
+      const float wc1 = two ? rnd_if<ROUND>(wc[1]) : 0.f;
+      const float ws1 = two ? rnd_if<ROUND>(ws[1]) : 0.f;
+      const float4* sk = reinterpret_cast<const float4*>(s_s + k * ST_ROWS * 2);
+#pragma unroll
+      for (int h = 0; h < ST_ROWS / 2; ++h) {
+        const float4 v = sk[h];  // (re, im) of rows 2h and 2h + 1
+        acc[2 * h][0] += v.x * wc0 - v.y * ws0;
+        acc[2 * h][1] += v.x * wc1 - v.y * ws1;
+        acc[2 * h + 1][0] += v.z * wc0 - v.w * ws0;
+        acc[2 * h + 1][1] += v.z * wc1 - v.w * ws1;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ST_ROWS; ++r)
+    *reinterpret_cast<float2*>(&red[(q * ST_ROWS + r) * ST3_COLS + 2 * c2]) =
+        make_float2(acc[r][0], acc[r][1]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ST_ROWS * ST3_COLS; e += ST_THREADS) {
+    const int r = e / ST3_COLS, col = e % ST3_COLS;
+    const int sc = blockIdx.y * ST3_COLS + col;
+    if (r >= nr || sc >= S) continue;
+    float v = 0.f;
+    for (int t = 0; t < ST3_SPLIT; ++t) v += red[(t * ST_ROWS + r) * ST3_COLS + col];
+    out[(size_t)(row0 + r) * S + sc] = v;
+  }
+}
+
+// Adjoint stage 3ᵀ: Ŝ_m[k] = (Σ_s p_m[s] Wc[k, s], −Σ_s p_m[s] Ws[k, s]),
+// p (rounded for ROUND) with member b masked by msk, Ŝ rounded for ROUND.
+// One warp per k, lanes over s (coalesced W). Rows row = (b·P + p)·2 + m of
+// p (B, 2P, S); shat4 (B, P, Kp, 4) = [re_a, im_a, re_b, im_b], zero for
+// k ≥ K. grid (ceil(rows/ST_ROWS), ceil(Kp/ST3T_TK)); ST_THREADS threads;
+// ST_ROWS·S floats of dynamic shared memory.
+template <bool ROUND>
+__device__ __forceinline__ void pair_stage3t(const float* __restrict__ p,
+                                             const float* __restrict__ msk,
+                                             const float* __restrict__ Wc,
+                                             const float* __restrict__ Ws,
+                                             float* __restrict__ shat4, int rows, int P, int K,
+                                             int Kp, int S) {
+  extern __shared__ float4 smem4[];
+  float* p_s = reinterpret_cast<float*>(smem4);  // [ST_ROWS][S]
+  const int row0 = blockIdx.x * ST_ROWS;
+  const int nr = min(ST_ROWS, rows - row0);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ST_ROWS * S; e += ST_THREADS) {
+    const int r = e / S, row = row0 + r;
+    float v = 0.f;
+    if (r < nr) {
+      v = rnd_if<ROUND>(p[(size_t)row * S + e % S]);
+      if (row & 1) v *= msk[(row >> 1) % P];
+    }
+    p_s[e] = v;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int kk = warp; kk < ST3T_TK; kk += ST_THREADS / 32) {
+    const int k = blockIdx.y * ST3T_TK + kk;
+    if (k >= Kp) break;
+    float re[ST_ROWS] = {}, im[ST_ROWS] = {};
+    if (k < K) {
+      const float* w_c = Wc + (size_t)k * S;
+      const float* w_s = Ws + (size_t)k * S;
+#pragma unroll 4
+      for (int s = lane; s < S; s += 32) {
+        const float wc = rnd_if<ROUND>(w_c[s]), ws = rnd_if<ROUND>(w_s[s]);
+#pragma unroll
+        for (int r = 0; r < ST_ROWS; ++r) {
+          re[r] += p_s[r * S + s] * wc;
+          im[r] += p_s[r * S + s] * ws;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ST_ROWS; ++r) {
+        for (int off = 16; off > 0; off >>= 1) {
+          re[r] += __shfl_xor_sync(0xffffffffu, re[r], off);
+          im[r] += __shfl_xor_sync(0xffffffffu, im[r], off);
+        }
+      }
+    }
+    if (lane < nr) {
+      float vr = 0.f, vi = 0.f;
+#pragma unroll
+      for (int r = 0; r < ST_ROWS; ++r)
+        if (r == lane) { vr = re[r]; vi = im[r]; }
+      const int row = row0 + lane;
+      float* dst = shat4 + ((size_t)(row >> 1) * Kp + k) * 4 + 2 * (row & 1);
+      dst[0] = rnd_if<ROUND>(vr);
+      dst[1] = rnd_if<ROUND>(-vi);
+    }
   }
 }
 

@@ -5,11 +5,14 @@ Two families replace the Pallas kernels of
 
 * mirror-pair, ``project_pair_group`` / ``backproject_pair_group``
   (``project_pair_group_pallas`` / ``backproject_pair_group_pallas``), for
-  plans whose angles pair, with two routes: float32 operands run the
-  CUDA-core kernels of ``csrc/radon_pair.cu``; bf16 operands run the
-  tensor-core (wgmma) kernels of ``csrc/radon_pair_tc.cu``, which read the
+  plans whose angles pair, with two tensor-core (wgmma) routes: bf16
+  operands run the kernels of ``csrc/radon_pair_tc.cu``, which read the
   plan's trig from tables that :func:`build_pair_tables` makes once per
-  plan and group (the caller, ``parallel.py``, owns and passes them);
+  plan and group; float32 operands run the split-bf16 kernels of
+  ``csrc/radon_pair_split.cu`` (three bf16 products of hi and lo parts per
+  step, f32 sums), which read :func:`build_pair_split_tables`' tables (the
+  caller, ``parallel.py``, owns and passes both). The CUDA-core kernels of
+  ``csrc/radon_pair.cu`` stay as an A/B baseline that no dispatch reaches;
 * per-angle, ``project_group`` / ``backproject_group``
   (``project_group_pallas`` / ``backproject_group_pallas``), for plans whose
   angles do not pair (golden-angle spokes, the radial fourier-slice NUFFT),
@@ -29,10 +32,11 @@ f64 for a float64 input on the CPU, which ``gradcheck`` uses); with
 ``cdt=torch.bfloat16`` the operands T̂, φ, f or p, W and Ŝ (or h) are
 rounded to bf16 where the twin casts them, and every sum accumulates in f32.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches`` and its
-tensor-core launches in ``.launches_tc``; :func:`build_pair_tables` and
-:func:`build_group_tables` count their table builds. A CPU call does not
-count.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, its
+bf16 tensor-core launches in ``.launches_tc`` and (pair wrappers) its
+split-bf16 launches in ``.launches_split``; the CUDA-core pair functions
+``_project_pair_cc`` / ``_backproject_pair_cc`` count theirs, and the
+table builders their builds. A CPU call does not count.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import math
 import torch
 
 __all__ = ["project_pair_group", "backproject_pair_group", "build_pair_tables",
-           "pair_adjoint_splits", "project_group", "backproject_group",
+           "build_pair_split_tables", "pair_adjoint_splits", "project_group", "backproject_group",
            "build_group_tables", "group_adjoint_splits", "reset_launch_counts"]
 
 
@@ -179,6 +183,40 @@ def _pair_tables(pos, sha, shb, spec, L, cdt=torch.bfloat16):
     return _interleave(_pair_spectral_tensors(pos, sha, shb, spec, L, cdt), cdt)
 
 
+def _split(x: torch.Tensor):
+    """(hi, lo) of the split-bf16 route in ``x``'s dtype: hi = bf16(x),
+    lo = bf16(x − hi) (x − hi is exact)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def _pair_split_tables(pos, sha, shb, spec, L):
+    """Plain version of :func:`build_pair_split_tables`: (T, phi), T̂ as
+    (2, P, Np, 2Kp) bf16 [hi, lo] and [φ_a, φ_b] as (2, P, Np, 2Kp) in the
+    working dtype, unrounded (layout of :func:`_interleave`)."""
+    tab = _interleave(_pair_spectral_tensors(pos, sha, shb, spec, L), torch.float32)
+    return torch.stack(_split(tab[0])).to(torch.bfloat16), tab[1:].contiguous()
+
+
+def _tab_parts(tab, dtype):
+    """(T̂ planes, φ tables) of either table kind in ``dtype``: [T̂] and the
+    φs of a (1 + M, P, Np, 2Kp) table; [T̂ hi, T̂ lo] and φ of split tables
+    (T, phi)."""
+    if isinstance(tab, tuple):
+        return tab[0].to(dtype), tab[1].to(dtype)
+    t = tab.to(dtype)
+    return t[:1], t[1:]
+
+
+def _stage1(sub, a, T):
+    """einsum(sub, a, T̂) from one T̂ plane, or the split route's three
+    products hi·hi + hi·lo + lo·hi (a split as :func:`_split`) from two."""
+    if T.shape[0] == 1:
+        return torch.einsum(sub, a, T[0])
+    ah, al = _split(a)
+    return (torch.einsum(sub, ah, T[0]) + torch.einsum(sub, ah, T[1])) + torch.einsum(sub, al, T[0])
+
+
 def _padded_image(f, Np: int, contract_x: bool, cdt):
     """F rounded to ``cdt`` and zero-padded to (B, Np, Np): f for the x
     group, its transpose for the y group (the forward's A operand)."""
@@ -198,40 +236,44 @@ def _tile_sum(part):
 
 def _depth_gemm(h, T, N: int, G: int, contract_x: bool, cdt):
     """Stage 1ᵀ of the tensor-core adjoints: h (B, P, Np, 2Kp) rounded to
-    ``cdt`` against the T̂ table (P, Np, 2Kp), depth (row group, k, re/im)
-    flattened; slice g takes 64-deep chunks [n·g/G, n·(g+1)/G) of the
-    n = P·2Kp/64, and the G partial images are summed in slice order. The
-    y group's image comes back transposed."""
+    ``cdt`` against the T̂ planes (1 or 2, P, Np, 2Kp; two: the split
+    route's hi and lo, with h split too, :func:`_stage1`), depth (row group,
+    k, re/im) flattened; slice g takes 64-deep chunks [n·g/G, n·(g+1)/G) of
+    the n = P·2Kp/64, and the G partial images are summed in slice order.
+    The y group's image comes back transposed."""
     B, P, Np, K2p = h.shape
     hd = _q(h, cdt).permute(0, 2, 1, 3).reshape(B, Np, P * K2p)
-    td = T.permute(0, 2, 1).reshape(P * K2p, Np)
+    td = T.permute(0, 1, 3, 2).reshape(T.shape[0], P * K2p, Np)
     n = P * K2p // _TC_DEPTH
     out = None
     for g in range(G):
         lo, hi = n * g // G * _TC_DEPTH, n * (g + 1) // G * _TC_DEPTH
-        part = hd[:, :, lo:hi] @ td[lo:hi]
+        part = _stage1("brd,dc->brc", hd[:, :, lo:hi], td[:, lo:hi])
         out = part if out is None else out + part
     out = out[:, :N, :N]
     return (out if contract_x else out.transpose(1, 2)).contiguous()
 
 
 def _pair_forward_tc(f, tab, sgn, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
-    """The tensor-core forward's arithmetic in its order, from the tables:
-    F rounded and zero-padded to (B, Np, Np), ĝ over the padded depth, one
-    partial Ŝ per 128-row tile, the partials summed in row-tile order, then
-    stage 3. Equals :func:`_project_pair_group` up to f32 summation order."""
+    """The tensor-core forward's arithmetic in its order, from the tables
+    (:func:`_pair_tables`, or the split route's :func:`_pair_split_tables`
+    with ``cdt=torch.float32``: F and T̂ split into hi and lo, three
+    products): F rounded and zero-padded to (B, Np, Np), ĝ over the padded
+    depth, one partial Ŝ per 128-row tile, the partials summed in row-tile
+    order, then stage 3. Equals :func:`_project_pair_group` up to f32
+    summation order (and, split, the dropped lo·lo term)."""
     B, N, _ = f.shape
-    _, P, Np, K2p = tab.shape
+    T, phi = _tab_parts(tab, f.dtype)
+    _, P, Np, K2p = T.shape
     K = Wc.shape[0]
     R = Np // _TC_ROWS
-    t = tab.to(f.dtype)
     Fp = _padded_image(f, Np, contract_x, cdt)
-    g = torch.einsum("brc,pcn->bprn", Fp, t[0])              # (B, P, Np, 2Kp)
+    g = _stage1("brc,pcn->bprn", Fp, T)                        # (B, P, Np, 2Kp)
     gr = g[..., 0::2].reshape(B, P, R, _TC_ROWS, -1)
     gi = g[..., 1::2].reshape(B, P, R, _TC_ROWS, -1)
     gib = gi * sgn[None, :, None, None, None]
-    ca, sa, cb, sb = (t[m][..., ri::2].reshape(P, R, _TC_ROWS, -1)
-                      for m in (1, 2) for ri in (0, 1))
+    ca, sa, cb, sb = (phi[m][..., ri::2].reshape(P, R, _TC_ROWS, -1)
+                      for m in (0, 1) for ri in (0, 1))
     part = torch.stack([(gr * ca - gi * sa).sum(3), (gr * sa + gi * ca).sum(3),
                         (gr * cb - gib * sb).sum(3), (gr * sb + gib * cb).sum(3)])
     shat = _q(_tile_sum(part.movedim(3, 0))[..., :K], cdt)  # (4, B, P, K)
@@ -242,16 +284,17 @@ def _pair_forward_tc(f, tab, sgn, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
 
 def _pair_adjoint_tc(p, tab, sgn, msk, Wc, Ws, contract_x: bool, N: int, G: int,
                      cdt=torch.bfloat16):
-    """The tensor-core adjoint's arithmetic in its order, from the tables:
-    Ŝ = Wᵀ p rounded, h built per (pair, k) and rounded, one GEMM over
-    (pair, k, re/im) per slice of :func:`pair_adjoint_splits` (slices of
-    64-deep chunks), the G partial images summed in slice order. Equals
+    """The tensor-core adjoint's arithmetic in its order, from the tables
+    (as :func:`_pair_forward_tc`; split, h and T̂ go into the products as hi
+    and lo): Ŝ = Wᵀ p rounded, h built per (pair, k) and rounded, one GEMM
+    over (pair, k, re/im) per slice of :func:`pair_adjoint_splits` (slices
+    of 64-deep chunks), the G partial images summed in slice order. Equals
     :func:`_backproject_pair_group` up to f32 summation order."""
     B, twoP, S = p.shape
     P = twoP // 2
-    _, _, Np, K2p = tab.shape
+    T, phi = _tab_parts(tab, p.dtype)
+    _, _, Np, K2p = T.shape
     K = Wc.shape[0]
-    t = tab.to(p.dtype)
     pp = _q(p, cdt).reshape(B, P, 2, S)
     pm = torch.stack([pp[:, :, 0], pp[:, :, 1] * msk[None, :, None]], dim=2)
     shat = p.new_zeros(B, P, 2, K2p // 2, 2)
@@ -259,12 +302,12 @@ def _pair_adjoint_tc(p, tab, sgn, msk, Wc, Ws, contract_x: bool, N: int, G: int,
     shat[..., :K, 1] = _q(-(pm @ _q(Ws, cdt).T), cdt)
     sra, sia = shat[:, :, 0, None, :, 0], shat[:, :, 0, None, :, 1]   # (B, P, 1, Kp)
     srb, sib = shat[:, :, 1, None, :, 0], shat[:, :, 1, None, :, 1]
-    ca, sa, cb, sb = (t[m][None, ..., ri::2] for m in (1, 2) for ri in (0, 1))
+    ca, sa, cb, sb = (phi[m][None, ..., ri::2] for m in (0, 1) for ri in (0, 1))
     sg = sgn[None, :, None, None]
     h = torch.empty(B, P, Np, K2p, dtype=p.dtype, device=p.device)
     h[..., 0::2] = (sra * ca + sia * sa) + (srb * cb + sib * sb)
     h[..., 1::2] = (-(sra * sa) + sia * ca) + sg * (-(srb * sb) + sib * cb)
-    return _depth_gemm(h, t[0], N, G, contract_x, cdt)
+    return _depth_gemm(h, T, N, G, contract_x, cdt)
 
 
 def _spectral_tensors(pos, shift, spec, L, cdt=torch.float32):
@@ -324,7 +367,7 @@ def _group_adjoint_tc(p, tab, Wc, Ws, contract_x: bool, N: int, G: int,
     h = torch.empty(B, A, Np, K2p, dtype=p.dtype, device=p.device)
     h[..., 0::2] = sr * c + si * s
     h[..., 1::2] = -(sr * s) + si * c
-    return _depth_gemm(h, t[0], N, G, contract_x, cdt)
+    return _depth_gemm(h, t[:1], N, G, contract_x, cdt)
 
 
 def _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
@@ -380,6 +423,9 @@ _ARGTYPES = {
     "radon_pair_tc_tables": [_P] * 5 + [_I] * 5 + [_F, _P],
     "radon_pair_tc_project": [_P] * 8 + [_I] * 8 + [_P],
     "radon_pair_tc_backproject": [_P] * 9 + [_I] * 9 + [_P],
+    "radon_pair_split_tables": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "radon_pair_split_project": [_P] * 9 + [_I] * 8 + [_P],
+    "radon_pair_split_backproject": [_P] * 10 + [_I] * 9 + [_P],
     "radon_group_project": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_group_backproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     "radon_group_tc_tables": [_P] * 4 + [_I] * 5 + [_F, _P],
@@ -458,6 +504,31 @@ def _check_tables(tables, n_tab, P, N, K, dev):
         raise ValueError("tables must be contiguous and 16-byte aligned")
 
 
+def _check_split_tables(tables, P, N, K, dev):
+    """The split route's tables (:func:`build_pair_split_tables`): T̂ as
+    (2, P, Np, 2Kp) bf16 and φ as (2, P, Np, 2Kp) float32 on ``dev``."""
+    if not isinstance(tables, tuple) or len(tables) != 2:
+        raise ValueError("a CUDA float32 pair projector call needs the plan's split trig "
+                         "tables (build_pair_split_tables of the same plan rows)")
+    Np, K2p = _tc_dims(N, K)
+    for name, t, dt in zip(("T", "phi"), tables, (torch.bfloat16, torch.float32)):
+        if t.device != dev:
+            raise ValueError(f"split table {name} is on {t.device}, expected {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"split table {name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != (2, P, Np, K2p):
+            raise ValueError(f"split table {name} has shape {tuple(t.shape)}, "
+                             f"expected {(2, P, Np, K2p)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"split table {name} must be contiguous and 16-byte aligned")
+
+
+def _table_ptrs(tables):
+    """Device pointers of a route's tables: the bf16 table, or the split
+    route's (T̂ hi/lo, φ) pair."""
+    return [t.data_ptr() for t in tables] if isinstance(tables, tuple) else [tables.data_ptr()]
+
+
 def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
@@ -470,10 +541,10 @@ def _launch(name, *args):
 
 
 def _project_pair_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L, contract_x: bool, cdt):
-    """The CUDA-core kernel of ``csrc/radon_pair.cu``: the float32 route of
-    :func:`project_pair_group`; with bf16 operands only an A/B baseline
-    (``chip_smoke.py``, ``scripts/trig_proto.py``) that no dispatch
-    reaches."""
+    """The CUDA-core kernel of ``csrc/radon_pair.cu``, float32 or bf16
+    operands: the A/B baseline of both tensor-core routes of
+    :func:`project_pair_group` (``chip_smoke.py``,
+    ``scripts/trig_proto.py``), which no dispatch reaches."""
     K, S = Wc.shape
     _check_dispatch(f, L, K)
     B, N, _ = f.shape
@@ -489,6 +560,7 @@ def _project_pair_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L, contract_x: bool, c
                 sgn.data_ptr(), spec.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
                 shat.data_ptr(), out.data_ptr(), B, N, P, K, S, 2.0 * math.pi / L,
                 int(contract_x), _compute_flag(cdt))
+    _project_pair_cc.launches += 1
     return out
 
 
@@ -511,6 +583,7 @@ def _backproject_pair_cc(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L, contract_x
                 sgn.data_ptr(), msk.data_ptr(), spec.data_ptr(), Wc.data_ptr(),
                 Ws.data_ptr(), shat.data_ptr(), out.data_ptr(), B, N, P, K, S,
                 2.0 * math.pi / L, int(contract_x), _compute_flag(cdt))
+    _backproject_pair_cc.launches += 1
     return out
 
 
@@ -539,14 +612,47 @@ def build_pair_tables(pos, sha, shb, spec, L):
     return tab
 
 
-def pair_adjoint_splits(B: int, N: int, P: int, n_sms: int) -> int:
-    """How many slices the tensor-core adjoint splits its depth (the pairs'
-    64-deep chunks of (k, re/im), in order) into: enough that its
-    (128-row x 256-column) output tiles times the slices fill every SM once
-    (one block per SM fits); never more slices than pairs. Each slice writes
-    a partial image, summed in slice order."""
-    tiles = B * math.ceil(N / _TC_ROWS) * math.ceil(N / _TC_ADJ_COLS)
-    return max(1, min(P, math.ceil(n_sms / tiles)))
+def build_pair_split_tables(pos, sha, shb, spec, L):
+    """The split-bf16 route's trig tables of one pair group: (T, phi), T̂ as
+    (2, P, Np, 2Kp) bf16 [hi, lo] and [φ_a, φ_b] as (2, P, Np, 2Kp) float32,
+    (re, im) interleaved along the frequency axis and zero-padded as in
+    :func:`build_pair_tables` (layout of :func:`_pair_split_tables`). CPU
+    tensors run :func:`_pair_split_tables`; CUDA tensors launch the kernel of
+    ``csrc/radon_pair_split.cu``, which forms each value with the CUDA-core
+    kernels' arithmetic."""
+    if pos.device.type == "cpu":
+        return _pair_split_tables(pos, sha, shb, spec, L)
+    _check_device(pos)
+    P, N = pos.shape
+    K = spec.shape[0]
+    dev = pos.device
+    for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
+        _check(name, t, (P, N), dev)
+    _check("spec", spec, (K,), dev)
+    Np, K2p = _tc_dims(N, K)
+    T = torch.empty((2, P, Np, K2p), dtype=torch.bfloat16, device=dev)
+    phi = torch.empty((2, P, Np, K2p), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_pair_split_tables", pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
+                spec.data_ptr(), T.data_ptr(), phi.data_ptr(), P, N, Np, K, K2p // 2,
+                2.0 * math.pi / L)
+    build_pair_split_tables.launches += 1
+    return T, phi
+
+
+#: output tile columns of the split route's adjoint (csrc/radon_tc.cuh AS_BN)
+_SPLIT_ADJ_COLS = 128
+
+
+def pair_adjoint_splits(B: int, N: int, P: int, n_sms: int, cols: int = _TC_ADJ_COLS) -> int:
+    """How many slices a tensor-core pair adjoint splits its depth (the
+    pairs' 64-deep chunks of (k, re/im), in order) into: as many as its
+    (128-row x ``cols``-column) output tiles times the slices fit in one
+    wave of one block per SM, so that no second, part-empty wave runs; never
+    more slices than pairs. Each slice writes a partial image, summed in
+    slice order. ``cols`` is 256 for the bf16 route, 128 for the split one."""
+    tiles = B * math.ceil(N / _TC_ROWS) * math.ceil(N / cols)
+    return max(1, min(P, n_sms // tiles))
 
 
 def project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
@@ -555,36 +661,41 @@ def project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     f (B,N,N) → (B, 2P, S) float32, rows interleaved [pair0-a, pair0-b, ...].
 
     CPU tensors run :func:`_project_pair_group`. CUDA tensors launch, with
-    float32 operands, the CUDA-core kernel of ``csrc/radon_pair.cu``; with
-    bf16 operands the tensor-core kernels of ``csrc/radon_pair_tc.cu``,
-    which read ``tables`` (:func:`build_pair_tables` of the same rows) and
-    raise without them."""
+    bf16 operands, the tensor-core kernels of ``csrc/radon_pair_tc.cu``,
+    which read ``tables`` (:func:`build_pair_tables` of the same rows); with
+    float32 operands the split-bf16 kernels of ``csrc/radon_pair_split.cu``,
+    which read ``tables`` from :func:`build_pair_split_tables`. Either
+    raises without its tables."""
     if f.device.type == "cpu":
         return _project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
                                    contract_x, cdt)
     K, S = Wc.shape
     _check_dispatch(f, L, K)
-    if not _compute_flag(cdt):
-        out = _project_pair_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L, contract_x, cdt)
-        project_pair_group.launches += 1
-        return out
+    split = not _compute_flag(cdt)
     B, N, _ = f.shape
     P = pos.shape[0]
     dev = f.device
-    _check_tables(tables, 3, P, N, K, dev)
+    if split:
+        _check_split_tables(tables, P, N, K, dev)
+    else:
+        _check_tables(tables, 3, P, N, K, dev)
     _check("f", f, (B, N, N), dev)
     _check_pair_plan(pos, sha, shb, sgn, None, spec, Wc, Ws, P, N, K, S, dev)
     Np, K2p = _tc_dims(N, K)
     out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    fb = torch.empty((B, Np, Np), dtype=torch.bfloat16, device=dev)
+    # F in bf16; split: its hi and lo planes
+    fb = torch.empty((1 + split, B, Np, Np), dtype=torch.bfloat16, device=dev)
     part = torch.empty((Np // _TC_ROWS, B, 2 * P, K, 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("radon_pair_tc_project",
-                f.data_ptr(), tables.data_ptr(), sgn.data_ptr(), Wc.data_ptr(),
+        _launch("radon_pair_split_project" if split else "radon_pair_tc_project",
+                f.data_ptr(), *_table_ptrs(tables), sgn.data_ptr(), Wc.data_ptr(),
                 Ws.data_ptr(), fb.data_ptr(), part.data_ptr(), out.data_ptr(),
                 B, N, Np, P, K, K2p // 2, S, int(contract_x))
     project_pair_group.launches += 1
-    project_pair_group.launches_tc += 1
+    if split:
+        project_pair_group.launches_split += 1
+    else:
+        project_pair_group.launches_tc += 1
     return out
 
 
@@ -600,31 +711,34 @@ def backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
                                        Ws, L, contract_x, cdt)
     K, S = Wc.shape
     _check_dispatch(p, L, K)
-    if not _compute_flag(cdt):
-        out = _backproject_pair_cc(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
-                                   contract_x, N, cdt)
-        backproject_pair_group.launches += 1
-        return out
+    split = not _compute_flag(cdt)
     B = p.shape[0]
     P = pos.shape[0]
     dev = p.device
-    _check_tables(tables, 3, P, N, K, dev)
+    if split:
+        _check_split_tables(tables, P, N, K, dev)
+    else:
+        _check_tables(tables, 3, P, N, K, dev)
     _check("p", p, (B, 2 * P, S), dev)
     _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev)
     Np, K2p = _tc_dims(N, K)
-    G = pair_adjoint_splits(B, N, P, torch.cuda.get_device_properties(dev).multi_processor_count)
+    G = pair_adjoint_splits(B, N, P, torch.cuda.get_device_properties(dev).multi_processor_count,
+                            _SPLIT_ADJ_COLS if split else _TC_ADJ_COLS)
     out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
     shat = torch.empty((B, P, K2p // 2, 4), dtype=torch.float32, device=dev)
     part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
             if G > 1 else None)
     with torch.cuda.device(dev):
-        _launch("radon_pair_tc_backproject",
-                p.data_ptr(), tables.data_ptr(), sgn.data_ptr(), msk.data_ptr(),
+        _launch("radon_pair_split_backproject" if split else "radon_pair_tc_backproject",
+                p.data_ptr(), *_table_ptrs(tables), sgn.data_ptr(), msk.data_ptr(),
                 Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
                 None if part is None else part.data_ptr(), out.data_ptr(),
                 B, N, Np, P, K, K2p // 2, S, G, int(contract_x))
     backproject_pair_group.launches += 1
-    backproject_pair_group.launches_tc += 1
+    if split:
+        backproject_pair_group.launches_split += 1
+    else:
+        backproject_pair_group.launches_tc += 1
     return out
 
 
@@ -819,10 +933,13 @@ def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
 
 def reset_launch_counts():
     for fn in (project_pair_group, backproject_pair_group, build_pair_tables,
+               build_pair_split_tables, _project_pair_cc, _backproject_pair_cc,
                project_group, backproject_group, build_group_tables):
         fn.launches = 0
     for fn in (project_pair_group, backproject_pair_group, project_group, backproject_group):
         fn.launches_tc = 0
+    for fn in (project_pair_group, backproject_pair_group):
+        fn.launches_split = 0
 
 
 reset_launch_counts()

@@ -10,9 +10,11 @@ each other's gradient.
 
 With bf16 operands on a CUDA tensor both kernel families run on the tensor
 cores and read the plan's trig tables (``build_pair_tables`` into
-``plan.pair_tables``, ``build_group_tables`` into ``plan.group_tables``),
-built on the card at the plan's first such call, one per angle group, and
-kept on the plan for every later call.
+``plan.pair_tables``, ``build_group_tables`` into ``plan.group_tables``);
+with float32 operands the pair kernels run the split-bf16 tensor-core route
+and read ``build_pair_split_tables``' tables (``plan.pair_split_tables``).
+Each is built on the card at the plan's first such call, one per angle
+group, and kept on the plan for every later call.
 
 Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
 ``(..., A, S)``.
@@ -30,6 +32,7 @@ from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     backproject_group,
     backproject_pair_group,
     build_group_tables,
+    build_pair_split_tables,
     build_pair_tables,
     project_group,
     project_pair_group,
@@ -53,17 +56,21 @@ def _pair_args(arr, grp):
 
 
 def _tables(plan: ParallelPlan, grp: str, x: torch.Tensor, cdt):
-    """The angle group's trig tables for the tensor-core route (CUDA, bf16),
-    made once per plan: the pair kernels' on a plan that pairs, else the
-    per-angle kernels'; None where the kernels do not read them."""
-    if cdt != torch.bfloat16 or x.device.type != "cuda":
-        return None
+    """The angle group's trig tables for the tensor-core routes (CUDA), made
+    once per plan: on a plan that pairs, the pair kernels' (bf16) or their
+    split-bf16 route's (float32); else, for bf16, the per-angle kernels';
+    None where the kernels do not read them (CPU, and the per-angle float32
+    route)."""
     pairs = plan.meta["use_pairs"]
-    store = plan.pair_tables if pairs else plan.group_tables
+    if x.device.type != "cuda" or (cdt != torch.bfloat16 and not pairs):
+        return None
+    split = cdt != torch.bfloat16
+    store = (plan.pair_split_tables if split else plan.pair_tables) if pairs else plan.group_tables
     if grp not in store:
         with torch.no_grad():
             if pairs:
-                store[grp] = build_pair_tables(
+                build = build_pair_split_tables if split else build_pair_tables
+                store[grp] = build(
                     *(getattr(plan, f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb")),
                     plan.spec, plan.meta["S_ext"])
             else:
