@@ -42,31 +42,38 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   6. at the radial path's shapes (pdunet_radial: 256² complex images, 128 of
      512 golden-angle spokes of 512 samples, so the per-angle kernels see
      B' = 2·4 = 8 real images, A_x = A_y = 64 spokes, K = 256, S = 1024),
-     the card's per-angle trig tables bit-equal to the plain builder's, and
-     the per-angle kernels against their plain versions, f32 (CUDA cores)
-     and bf16 (tensor cores, from the tables), both groups, to the same
-     tolerances; the tensor-core route against the plain version of its own
-     tiling, again at B' = 2 and on the ragged 32² radial plan (24 spokes of
-     64 samples), and the CUDA-core kernels in bf16 (the A/B baseline); the
-     complex adjoint dot test of the fourier-slice NUFFT (≤ 1e-5) and the
-     bf16 dot test of the tensor-core pair per group (≤ 2× the plain bf16
-     pair's mismatch plus 1e-4);
+     both routes' per-angle trig tables bit-equal to the plain builders', and
+     the per-angle kernels against their plain versions, f32 (the split-bf16
+     tensor-core route) and bf16 (the tensor-core route), each from the
+     plan's tables, both groups, to the same tolerances; both routes against
+     the plain versions of their own tiling and arithmetic, again at B' = 2
+     and on the ragged 32² radial plan (24 spokes of 64 samples), and the
+     CUDA-core kernels in f32 and bf16 (the A/B baseline); the complex
+     adjoint dot test of the fourier-slice NUFFT (≤ 1e-5), the f32 dot test
+     of the split route's per-angle operators (y = A x + noise, ≤ 1e-5) and
+     the bf16 dot test of the tensor-core pair per group (≤ 2× the plain
+     bf16 pair's mismatch plus 1e-4);
   7. the radial serving path at full width (build_task("pdunet_radial") →
      make_batch → batch_from_images(image_c) → recon_fn → PSNR/SSIM on the
      magnitude), random weights from a seed; launch counters, zeroed before
-     build_task, must show the per-angle tables built once per group, every
-     bf16 A and A† (the power iteration in build_task, 2·n_iters per op per
-     batch in recon_fn) on the tensor-core route, synthesis and the DCF
-     adjoint (4 per op per batch) on the float32 route, and no pair kernel;
-     the card's sino and f0 must match the CPU plain path (batch 1), and a
-     cut-down f32 radial task must reconstruct the same on card and CPU;
+     build_task, must show each route's per-angle tables built once per
+     group, every bf16 A and A† (the power iteration in build_task,
+     2·n_iters per op per batch in recon_fn) on the tensor-core route,
+     synthesis and the DCF adjoint (2 per op per batch_from_images, 4 per
+     op per batch) on the split route, and no CUDA-core or pair kernel; the
+     card's sino and f0 must match the CPU plain path (batch 1), and a
+     cut-down f32 radial task (split route) must reconstruct the same on
+     card and CPU;
   8. timings of the per-angle kernels beside their bound, plain version and
-     stage-1 matmul yardstick, both bf16 routes in turns at B' = 8 and
-     B' = 256 (bench's batch 128), warm and L2-cold, the adjoint's time
-     against its slice count at B' = 8, each call's device time by kernel,
-     the table build, and the radial recon at batch 4: slices/s with the
-     per-angle bf16 calls on either route in turns, the host's time to
-     enqueue one recon, and the profile on both routes;
+     stage-1 matmul yardstick (bf16; full f32 for the f32 route), each
+     tensor-core route against the CUDA-core kernels in turns at B' = 8 and
+     B' = 256 (bench's batch 128), warm and L2-cold, the split route's
+     bound beside the FP32 one, both adjoints' times against their slice
+     counts at B' = 8, each call's device time by kernel on both routes,
+     the table builds, batch_from_images on either f32 route at batch 4 and
+     128, and the radial recon at batch 4: slices/s with the per-angle bf16
+     calls on either route in turns, the host's time to enqueue one recon,
+     and the profile on both routes;
   9. the two kernel probes as a user runs them (``python -m
      pdunet_tpu_torch.scripts.trig_proto`` / ``pack_proto``: flagship plan,
      256², 90 of 360 angles, B=32, their own checks and timings); launch
@@ -74,7 +81,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
  10. at those shapes, each probe kernel (doubling and no-trig pair forward,
      packed per-angle forward and adjoint) against its plain version, f32
      and bf16, both groups (≤ 1e-5 / ≤ 5e-3); the packed kernels with exact
-     trig in bf16 too; packed = shipped per-angle kernels in f32 (≤ 1e-5);
+     trig in bf16 too; packed = the CUDA-core per-angle kernels in f32
+     (≤ 1e-5);
      the packed pair's adjoint dot test in f32; doubling within 2e-2 of the
      exact-trig pair kernel;
  11. CUDA-event timings of the probe kernels beside their bound, plain
@@ -82,9 +90,9 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only.
 
-Output: a ``{"kernels": [...]}`` JSON line (eleven kernels: the six TPU
+Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
-builders of the pair kernels' two routes and of the per-angle kernels),
+builders of both routes of the pair and of the per-angle kernels),
 then the card's name and power limit, then the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -222,14 +230,14 @@ def bound_ms(flops, nbytes, tname):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def split_bound_ms(B, N, P, K, S):
-    """Least time of one split-bf16 pair-group call: stage 1 (or 1ᵀ), run
-    as three bf16 products, over the bf16 peak, plus stages 2-3 over the
-    FP32 peak, against its bytes (``pair_cost``'s) over the memory rate. A
-    split kernel may beat 67 TFLOP/s, so the FP32 bound alone would read
-    above 100%."""
-    flops, nbytes = pair_cost(B, N, P, K, S)
-    stage1 = 4 * B * P * N * N * K
+def split_bound_ms(cost, stage1):
+    """Least time of one split-bf16 group call of ``cost = (flops, bytes)``
+    (``pair_cost``'s or ``group_cost``'s) whose stage 1 (or 1ᵀ) is
+    ``stage1`` of the flops: stage 1, run as three bf16 products, over the
+    bf16 peak, plus stages 2-3 over the FP32 peak, against its bytes over
+    the memory rate. A split kernel may beat 67 TFLOP/s, so the FP32 bound
+    alone would read above 100%."""
+    flops, nbytes = cost
     t_ops = 3 * stage1 / PEAK_FLOPS["bfloat16"] + (flops - stage1) / PEAK_FLOPS["float32"]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -395,7 +403,7 @@ def profile_recon(one_recon, card, reps=3):
     for e in kern:
         n = e.key
         g = ("mirror-pair projector kernels (radon_pair*.cu)" if "pair_" in n
-             else "per-angle projector kernels (radon_group.cu, radon_group_tc.cu)"
+             else "per-angle projector kernels (radon_group*.cu)"
              if "group_" in n
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
              else "other")
@@ -564,7 +572,8 @@ def table_entry(build, plain, args, launches, replaces, path, card):
     print(f"[time] {name} (one group, {[tuple(t.shape) for t in tabs]}, {nbytes / 1e6:.2f} MB): "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
     source = {"build_pair_tables": "radon_pair_tc.cu", "build_pair_split_tables":
-              "radon_pair_split.cu"}.get(name, "radon_group_tc.cu")
+              "radon_pair_split.cu", "build_group_split_tables": "radon_group_split.cu"
+              }.get(name, "radon_group_tc.cu")
     return {"name": name, "route": "cuda",
             "source": f"pdunet_tpu_torch/ops/radon/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": 0.0, "ms": ms,
@@ -572,27 +581,36 @@ def table_entry(build, plain, args, launches, replaces, path, card):
             "path": path}
 
 
-#: the kernels of csrc/radon_group_tc.cu
+#: the kernels of csrc/radon_group_tc.cu and csrc/radon_group_split.cu
 GROUP_TC_KERNELS = ("group_tc_tables", "group_tc_prep", "group_tc_fwd", "group_tc_w_prep",
                     "group_tc_round", "group_tc_fwd_stage3", "group_tc_adj_stage3t",
                     "group_tc_adj", "group_tc_reduce")
+GROUP_SPLIT_KERNELS = ("group_split_tables", "group_split_prep", "group_split_fwd",
+                       "group_split_fwd_stage3", "group_split_adj_stage3t", "group_split_adj",
+                       "group_split_reduce")
 
 
 def group_counts(ck):
-    """(launches, tensor-core launches) of the per-angle wrappers and their
-    table builder."""
-    return {"project_group": (ck.project_group.launches, ck.project_group.launches_tc),
+    """(launches, bf16 tensor-core launches, split-bf16 launches) of the
+    per-angle wrappers, and the launches of their table builders and of the
+    CUDA-core per-angle functions (the A/B baseline)."""
+    return {"project_group": (ck.project_group.launches, ck.project_group.launches_tc,
+                              ck.project_group.launches_split),
             "backproject_group": (ck.backproject_group.launches,
-                                  ck.backproject_group.launches_tc),
-            "build_group_tables": (ck.build_group_tables.launches, 0)}
+                                  ck.backproject_group.launches_tc,
+                                  ck.backproject_group.launches_split),
+            "build_group_tables": (ck.build_group_tables.launches, 0, 0),
+            "build_group_split_tables": (ck.build_group_split_tables.launches, 0, 0),
+            "_project_group_cc": (ck._project_group_cc.launches, 0, 0),
+            "_backproject_group_cc": (ck._backproject_group_cc.launches, 0, 0)}
 
 
 def group_calls(ck, plan, tabs, f, p):
     """(fwd, adj) for check_kernels on a per-angle plan: fwd(g, cdt, impl)
     runs a per-angle forward implementation on the image batch f, adj(g,
-    cdt, impl) an adjoint on p[g]; the wrappers get the group's trig
-    tables, the CUDA-core adjoint the image size (the plain versions read
-    it off pos)."""
+    cdt, impl) an adjoint on p[g]; the wrappers get the group's trig tables
+    (``tabs[cdt][g]``: the bf16 route's, or the float32 split route's), the
+    CUDA-core adjoint the image size (the plain versions read it off pos)."""
     L, N = plan.meta["S_ext"], plan.meta["N"]
 
     def rows(g):
@@ -601,12 +619,12 @@ def group_calls(ck, plan, tabs, f, p):
 
     def fwd(g, cdt, impl):
         if impl is ck.project_group:
-            return impl(f, *rows(g), cdt, tables=tabs[g])
+            return impl(f, *rows(g), cdt, tables=tabs[cdt][g])
         return impl(f, *rows(g), cdt)
 
     def adj(g, cdt, impl):
         if impl is ck.backproject_group:
-            return impl(p[g], *rows(g), N, cdt, tables=tabs[g])
+            return impl(p[g], *rows(g), N, cdt, tables=tabs[cdt][g])
         if impl is ck._backproject_group_cc:
             return impl(p[g], *rows(g), N, cdt)
         return impl(p[g], *rows(g), cdt)
@@ -615,11 +633,14 @@ def group_calls(ck, plan, tabs, f, p):
 
 
 def group_tables(ck, plan):
-    """The card's per-angle trig tables of both groups, checked bit-equal
-    to the plain builder's."""
-    return check_tables(ck.build_group_tables, ck._group_tables,
-                        {g: (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"),
-                             plan.spec, plan.meta["S_ext"]) for g in "xy"})
+    """The card's per-angle trig tables of both groups for both tensor-core
+    routes, checked bit-equal to the plain builders': {cdt: {group:
+    tables}}."""
+    args = {g: (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec,
+                plan.meta["S_ext"]) for g in "xy"}
+    return {torch.bfloat16: check_tables(ck.build_group_tables, ck._group_tables, args),
+            torch.float32: check_tables(ck.build_group_split_tables, ck._group_split_tables,
+                                        args)}
 
 
 @contextlib.contextmanager
@@ -651,8 +672,8 @@ def pair_cc_route(ck):
 @contextlib.contextmanager
 def cc_route(ck):
     """Send parallel.py's per-angle calls to the CUDA-core kernels whatever
-    their operand type: the A/B baseline of the tensor-core route for a
-    whole recon (the main path never takes it)."""
+    their operand type: the A/B baseline of both tensor-core routes for a
+    whole recon or synthesis (the main path never takes it)."""
     from pdunet_tpu_torch.ops.radon import parallel
 
     saved = parallel.project_group, parallel.backproject_group
@@ -682,6 +703,7 @@ def radial_phases(dev, card, gen):
         fs_nufft_forward,
     )
     from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon.parallel import parallel_backproject, parallel_project
     from pdunet_tpu_torch.training.tasks import build_geometries, build_task, estimate_opnorm
 
     # -- 6. per-angle kernels against their plain versions -------------------
@@ -702,7 +724,7 @@ def radial_phases(dev, card, gen):
     f = torch.randn(Bp, N, N, generator=gen, device=dev)
     p = {g: torch.randn(Bp, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"}
 
-    # the card's trig tables (the tensor-core route's) against the plain builder
+    # the card's trig tables (both tensor-core routes') against the plain builders
     tabs = group_tables(ck, plan)
     fwd, adj = group_calls(ck, plan, tabs, f, p)
     kernels = {
@@ -711,24 +733,33 @@ def radial_phases(dev, card, gen):
     }
     errs = {}
     check_kernels(kernels, errs)
-    # the CUDA-core kernels with bf16 operands: the A/B baseline of phase 8
+    # the CUDA-core kernels, f32 and bf16 operands: the A/B baseline of both
+    # tensor-core routes in phase 8
     check_kernels({"project_group CUDA-core": (fwd, ck._project_group_cc, ck._project_group),
                    "backproject_group CUDA-core": (adj, ck._backproject_group_cc,
                                                    ck._backproject_group)},
-                  errs, dtypes=(torch.bfloat16,))
-    # the tensor-core kernels against the plain versions of their own
-    # tiling, which read the same (card-built) tables
+                  errs)
+    # the tensor-core kernels against the plain versions of their own tiling
+    # and arithmetic, which read the same (card-built) tables: bf16, and the
+    # float32 split route (hi/lo operands, three products)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bf16 = torch.bfloat16
-    for g in "xy":
-        rf = rel(fwd(g, bf16, ck.project_group),
-                 ck._group_forward_tc(f, tabs[g], plan.Wc, plan.Ws, g == "x"))
-        G = ck.group_adjoint_splits(Bp, N, m[f"A_{g}"], n_sms)
-        ra = rel(adj(g, bf16, ck.backproject_group),
-                 ck._group_adjoint_tc(p[g], tabs[g], plan.Wc, plan.Ws, g == "x", N, G))
-        print(f"[check] tensor-core per-angle vs its tiled plain version, group {g}: fwd "
-              f"rel {rf:.3e}, adj rel {ra:.3e} (G = {G} slices; tol 5e-3)")
-        check(rf <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "tiled plain version")
+    bf16, f32 = torch.bfloat16, torch.float32
+    split_rel = {}
+    for cdt, cols in ((bf16, ck._TC_ADJ_COLS), (f32, ck._SPLIT_ADJ_COLS)):
+        tname = str(cdt).split(".")[1]
+        for g in "xy":
+            rf = rel(fwd(g, cdt, ck.project_group),
+                     ck._group_forward_tc(f, tabs[cdt][g], plan.Wc, plan.Ws, g == "x", cdt))
+            G = ck.group_adjoint_splits(Bp, N, m[f"A_{g}"], n_sms, cols)
+            ra = rel(adj(g, cdt, ck.backproject_group),
+                     ck._group_adjoint_tc(p[g], tabs[cdt][g], plan.Wc, plan.Ws, g == "x", N, G,
+                                          cdt))
+            if cdt == f32:
+                split_rel[g] = (rf, ra)
+            print(f"[check] tensor-core per-angle ({tname} route) vs its tiled plain version, "
+                  f"group {g}: fwd rel {rf:.3e}, adj rel {ra:.3e} (G = {G} slices; tol "
+                  f"{TOL[tname]:.0e})")
+            check(rf <= TOL[tname] and ra <= TOL[tname], "tiled plain version")
     # another batch size, and the ragged 32² radial plan (24 spokes of 64
     # samples: Np = 128 and 2Kp = 128 padded)
     small_plan = build_fs_plan(RadialGeometry(image_size=32, n_spokes=24), device=dev).par_plan
@@ -757,6 +788,23 @@ def radial_phases(dev, card, gen):
     dot_rel = float(abs(lhs - rhs) / abs(lhs))
     print(f"[check] fs NUFFT adjoint <Ax,y> vs <x,A^H y>: rel {dot_rel:.3e} (tol 1e-5)")
     check(dot_rel < 1e-5, f"fs NUFFT adjoint test failed: {dot_rel}")
+    # float32 per-angle operators (the split route): y = A x plus a random
+    # sinogram of the same norm keeps <Ax, y> near ‖Ax‖², so the mismatch
+    # reads the pair's error and not a ratio of near-zero random products
+    n_split = ck.project_group.launches_split, ck.backproject_group.launches_split
+    xs = torch.randn(Bp, N, N, generator=gen, device=dev)
+    ax = parallel_project(plan, xs)
+    ys = torch.randn(ax.shape, generator=gen, device=dev)
+    ys = ax + ys * (ax.norm() / ys.norm())
+    lhs = torch.vdot(ax.double().flatten(), ys.double().flatten())
+    rhs = torch.vdot(xs.double().flatten(), parallel_backproject(plan, ys).double().flatten())
+    dot_f32 = float(abs(lhs - rhs) / abs(lhs))
+    print(f"[check] radial float32 per-angle adjoint <Ax,y> vs <x,A^T y> (split-bf16 route): "
+          f"rel {dot_f32:.3e} (tol 1e-5)")
+    check(dot_f32 < 1e-5, f"radial float32 dot test failed: {dot_f32}")
+    check(ck.project_group.launches_split == n_split[0] + 2
+          and ck.backproject_group.launches_split == n_split[1] + 2,
+          "the radial float32 dot test did not run the split route")
     # bf16: A and A† round different operands, so the pair is not an exact
     # transpose; the tensor-core pair must do no worse than the plain pair
     dot_bf16 = {}
@@ -803,31 +851,41 @@ def radial_phases(dev, card, gen):
                             ssim(recon, batch["image"])))
     torch.cuda.synchronize()
     counts = group_counts(ck)
-    launches = {name: counts[name][0] for name in counts}
-    print(f"[chip_smoke] radial main-path launches (total, tensor-core): after build_task "
-          f"{at_build}, after {n_batches} batches {counts}")
+    launches = {name: counts[name][0] for name in ("project_group", "backproject_group",
+                                                   "build_group_tables",
+                                                   "build_group_split_tables")}
+    print(f"[chip_smoke] radial main-path launches (total, bf16 tensor-core, split): after "
+          f"build_task {at_build}, after {n_batches} batches {counts}")
     check(ck.project_pair_group.launches == ck.backproject_pair_group.launches == 0
           and ck.build_pair_tables.launches == ck.build_pair_split_tables.launches == 0,
           "a pair kernel ran on the radial path")
     # build_task: the power iteration's (n + 1) bf16 A†A, 2 groups each, and
-    # one table build per group. Per batch: make_batch and batch_from_images
-    # each run A + the DCF adjoint in f32, recon_fn n_iters bf16 A and A†;
-    # every A / A† is 2 groups
+    # one bf16 table build per group. Per batch: make_batch and
+    # batch_from_images each run A + the DCF adjoint in f32 on the split
+    # route (2 group calls per op per batch_from_images; its tables built
+    # once per group of the f32 plan, at the first synthesis), recon_fn
+    # n_iters bf16 A and A†. The CUDA-core kernels never run.
     n_iters = config.model.n_iters
     n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
-    check(at_build["build_group_tables"] == (2, 0) and counts["build_group_tables"] == (2, 0),
-          "the per-angle trig tables were not built exactly once per group")
+    check(at_build["build_group_tables"][0] == 2 and counts["build_group_tables"][0] == 2,
+          "the per-angle bf16 trig tables were not built exactly once per group")
+    check(at_build["build_group_split_tables"][0] == 0
+          and counts["build_group_split_tables"][0] == 2,
+          "the per-angle split trig tables were not built exactly once per group, at the "
+          "first synthesis")
+    check(counts["_project_group_cc"][0] == counts["_backproject_group_cc"][0] == 0,
+          "a CUDA-core per-angle kernel ran on the radial path")
     for name in ("project_group", "backproject_group"):
         tc_build = 2 * (n_power + 1)
-        check(at_build[name] == (tc_build, tc_build),
+        check(at_build[name] == (tc_build, tc_build, 0),
               f"{name}: {at_build[name]} in build_task, expected {tc_build} on the tensor cores")
-        n, n_tc = (c_ - b_ for c_, b_ in zip(counts[name], at_build[name]))
+        n, n_tc, n_split = (c_ - b_ for c_, b_ in zip(counts[name], at_build[name]))
         check(n_tc == n_batches * 2 * n_iters,
               f"{name}: {n_tc} tensor-core launches in {n_batches} batches, expected "
               f"{n_batches * 2 * n_iters} (recon_fn)")
-        check(n - n_tc == n_batches * 2 * 2,
-              f"{name}: {n - n_tc} float32 launches in {n_batches} batches, expected "
-              f"{n_batches * 2 * 2} (synthesis, DCF adjoint)")
+        check(n_split == n - n_tc == n_batches * 2 * 2,
+              f"{name}: {n_split} split-route launches of {n - n_tc} float32 ones in "
+              f"{n_batches} batches, expected {n_batches * 2 * 2} (synthesis, DCF adjoint)")
     all_ps, all_ss = [], []
     for i, (batch, recon, ps, ss) in enumerate(results):
         check(recon.shape == (B, N, N) and recon.dtype == torch.float32,
@@ -854,13 +912,15 @@ def radial_phases(dev, card, gen):
           f"{sino_rel:.3e}, f0 rel {f0_rel:.3e} (tol 1e-5 / 1e-4: the |r|-ramp of the "
           f"DCF lifts the kernels' 1e-6-level differences)")
     check(sino_rel < 1e-5 and f0_rel < 1e-4, "radial card synthesis disagrees with the CPU")
-    # a cut-down float32 radial task: the whole recon on the card vs on the CPU
+    # a cut-down float32 radial task: the whole recon on the card (every
+    # per-angle call on the split route) vs on the CPU
     small = config.override({
         "geometry.image_size": 32, "geometry.n_angles": 96,
         "model.base_features": 8, "model.n_iters": 2, "model.use_bfloat16": False,
         "train.batch_size": 2})
     x0 = np.random.default_rng(0).standard_normal((32, 32))
     recons = []
+    split_before = ck.project_group.launches_split
     for d in (dev, torch.device("cpu")):
         t_small = build_task(small, device=d, opnorm_x0=x0)
         with torch.inference_mode():
@@ -873,11 +933,20 @@ def radial_phases(dev, card, gen):
     print(f"[check] small f32 radial task recon (32², 24 spokes), card vs CPU: "
           f"rel {small_rel:.3e} (tol 1e-4)")
     check(small_rel < 1e-4, "small radial recon on the card disagrees with the CPU")
+    check(ck.project_group.launches_split > split_before,
+          "the small f32 radial task did not run the split route")
 
     # -- 8. timings ----------------------------------------------------------------
+    def group_mean_cost(B_):
+        costs = [group_cost(B_, N, m[f"A_{g}"], K, S) for g in "xy"]
+        return sum(c_[0] for c_ in costs) / 2, sum(c_[1] for c_ in costs) / 2
+
+    def group_split_bound(B_):
+        stage1 = sum(4 * B_ * m[f"A_{g}"] * N * N * K for g in "xy") / 2
+        return split_bound_ms(group_mean_cost(B_), stage1)
+
     A_g = m["A_x"]
-    fl = sum(group_cost(Bp, N, m[f"A_{g}"], K, S)[0] for g in "xy") / 2
-    nb = sum(group_cost(Bp, N, m[f"A_{g}"], K, S)[1] for g in "xy") / 2
+    fl, nb = group_mean_cost(Bp)
     Tm = torch.randn(A_g, N, 2 * K, generator=gen, device=dev).to(bf16)
     Fm = f.to(bf16).reshape(1, Bp * N, N).expand(A_g, Bp * N, N).contiguous()
     mm_ms = cuda_ms(lambda: torch.matmul(Fm, Tm))
@@ -885,12 +954,17 @@ def radial_phases(dev, card, gen):
           f"({A_g} x [{Bp * N}x{N}] @ [{N}x{2 * K}]): {mm_ms:.4f} ms ({card})")
     del Fm, Tm
     replaces = {
-        "project_group": "pdunet_tpu/ops/radon/pallas_kernels.py:280",
-        "backproject_group": "pdunet_tpu/ops/radon/pallas_kernels.py:308",
+        "project_group": "pdunet_tpu/ops/radon/pallas_kernels.py:281",
+        "backproject_group": "pdunet_tpu/ops/radon/pallas_kernels.py:309",
     }
+    split_bound = group_split_bound(Bp)
+    fp32_bound = bound_ms(fl, nb, "float32")
+    print(f"[time] per-angle bounds per group call at B'={Bp}: split-bf16 route "
+          f"{split_bound[0]:.4f} ms ({split_bound[1]}: stage 1 as 3 bf16 products at 989 "
+          f"TFLOP/s, stages 2-3 at 67), FP32 CUDA cores {fp32_bound[0]:.4f} ms ({card})")
     entries = time_kernels(kernels, errs, launches, (fl, nb),
                            "pdunet_tpu_torch/ops/radon/csrc/radon_group_tc.cu", replaces,
-                           mm_ms, card)
+                           mm_ms, card, bound_f32=split_bound)
 
     def group_inputs(B_):
         fwd_, adj_ = group_calls(
@@ -898,51 +972,72 @@ def radial_phases(dev, card, gen):
             {g: torch.randn(B_, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"})
         return {"project_group": fwd_, "backproject_group": adj_}
 
-    def group_mean_cost(B_):
-        costs = [group_cost(B_, N, m[f"A_{g}"], K, S) for g in "xy"]
-        return sum(c_[0] for c_ in costs) / 2, sum(c_[1] for c_ in costs) / 2
-
     # B' = 8: the serving shape at batch 4; B' = 256: bench's batch 128
-    ab = route_ab({"project_group": (ck.project_group, ck._project_group_cc),
-                   "backproject_group": (ck.backproject_group, ck._backproject_group_cc)},
-                  group_inputs, group_mean_cost, lambda B_: (A_g, B_ * N, N, 2 * K), card,
-                  (Bp, 256), dev, gen)
+    group_ops = {"project_group": (ck.project_group, ck._project_group_cc),
+                 "backproject_group": (ck.backproject_group, ck._backproject_group_cc)}
+    ab = route_ab(group_ops, group_inputs, group_mean_cost, lambda B_: (A_g, B_ * N, N, 2 * K),
+                  card, (Bp, 256), dev, gen)
+    # float32: the split-bf16 route against radon_group.cu's CUDA-core kernels,
+    # beside a full-f32 torch.matmul of stage 1's shape (TF32 off) as the yardstick
+    ab32 = route_ab(group_ops, group_inputs, group_mean_cost,
+                    lambda B_: (A_g, B_ * N, N, 2 * K), card, (Bp, 256), dev, gen,
+                    cdt=f32, bound=group_split_bound, key="split")
     for e in entries:
         op = e["name"]
-        e["ms_eager"] = e["ms"]
+        fwd_op = op == "project_group"
+        # "ms" / "ms_f32" are the device times of the routes the main path
+        # takes; the back-to-back host-clocked times stay as ms_eager*
+        e["ms_eager"], e["ms_eager_f32"] = e["ms"], e["ms_f32"]
         e.update(ab[op])
+        e.update(ab32[op])
         e["ms"] = ab[op][f"ms_tc_b{Bp}"]
-        e["launches_tc"] = counts[op][1]
-        e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_group.cu"
+        e["ms_f32"] = ab32[op][f"ms_split_f32_b{Bp}"]
+        e["bound_ms_f32_fp32"], e["bound_by_f32_fp32"] = fp32_bound
+        e["launches_tc"], e["launches_split"] = counts[op][1], counts[op][2]
+        e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_group_split.cu"
+        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_group.cu"
+        e["rel_err_f32_vs_tiled_split"] = max(v[0 if fwd_op else 1] for v in split_rel.values())
         e["path"] = "pdunet_radial (B' = 2 x batch real images per group call)"
-        e["operand_dtype"] = ("bfloat16 on tensor cores (f32 keys *_f32: CUDA-core "
-                              "route; *_cc_*: CUDA-core bf16 A/B baseline)")
+        e["operand_dtype"] = ("bfloat16 on tensor cores; f32 keys *_f32: split-bf16 route on "
+                              "tensor cores, bound_ms_f32 its bound, bound_ms_f32_fp32 the FP32 "
+                              "CUDA-core bound; *_cc_*: CUDA-core A/B baseline, radon_group.cu")
+    group_args = (plan.pos_x, plan.shift_x, plan.spec, L)
     entries.append(table_entry(
-        ck.build_group_tables, ck._group_tables,
-        (plan.pos_x, plan.shift_x, plan.spec, L), launches["build_group_tables"],
+        ck.build_group_tables, ck._group_tables, group_args, launches["build_group_tables"],
         "pdunet_tpu/ops/radon/pallas_kernels.py:99",
         "once per plan and angle group (pdunet_radial: in build_task)", card))
+    entries.append(table_entry(
+        ck.build_group_split_tables, ck._group_split_tables, group_args,
+        launches["build_group_split_tables"], "pdunet_tpu/ops/radon/pallas_kernels.py:99",
+        "once per f32 plan and angle group (pdunet_radial: at the first synthesis)", card))
 
     def one_recon():
         with torch.inference_mode():
             task.recon_fn(task.model, batch)
 
-    # the adjoint's slice count at B' = 8 (group_adjoint_splits' choice
-    # among them)
+    # the adjoints' slice counts at B' = 8 (group_adjoint_splits' choice
+    # among them): bf16 (128 x 256 tiles), split (128 x 128)
     group_sweep = split_sweep(
         ck, "group_adjoint_splits", lambda g: adj(g, bf16, ck.backproject_group),
         Bp * -(-N // 128) * -(-N // 256), (4, 8, 9, 16, 17, 33),
         f"backproject_group bf16 B={Bp}", card)
+    group_split_sweep = split_sweep(
+        ck, "group_adjoint_splits", lambda g: adj(g, f32, ck.backproject_group),
+        Bp * -(-N // 128) * -(-N // 128), (2, 3, 4, 5, 8, 16),
+        f"backproject_group float32 (split) B={Bp}", card)
 
-    # each group call by kernel: the share of stages 3 / 3ᵀ beside the products
+    # each group call by kernel, on both tensor-core routes: the share of
+    # stages 3 / 3ᵀ beside the products
     shares = {}
     for B_ in (Bp, 256):
         calls = group_inputs(B_)
         for op, impl in (("project_group", ck.project_group),
                          ("backproject_group", ck.backproject_group)):
-            shares[f"{op}_b{B_}"] = call_profile(
-                lambda call=calls[op], impl=impl: call("x", bf16, impl),
-                f"{op} bf16 B={B_} group x", card)
+            for cdt in (bf16, f32):
+                key = f"{op}_b{B_}" if cdt == bf16 else f"{op}_float32_b{B_}"
+                shares[key] = call_profile(
+                    lambda call=calls[op], impl=impl, cdt=cdt: call("x", cdt, impl),
+                    f"{op} {str(cdt).split('.')[1]} B={B_} group x", card)
         del calls
 
     # the whole recon on each bf16 route, in turns, and the host's share
@@ -957,9 +1052,23 @@ def radial_phases(dev, card, gen):
           f"{recon_s * 1e3:.3f} ms, CUDA-core route {sum(recon_turns['cc']) / 2 * 1e3:.3f} ms "
           f"per batch (turns {recon_turns}); host time to enqueue one recon "
           f"{enqueue_ms:.3f} ms ({card})")
-    synth_ms = cuda_ms(lambda: task.batch_from_images(batch["image_c"]), iters=10)
-    print(f"[time] radial batch_from_images (f32 A + DCF adjoint) at batch {B}: "
-          f"{synth_ms:.4f} ms ({card})")
+    # the synthesis (f32 A + DCF adjoint) at batch 4 and 128, on the split
+    # route and on the CUDA-core kernels, in turns
+    mag = random_phantom_batch(torch.Generator(device=dev).manual_seed(5), 128, N, nonneg=True,
+                               device=dev)
+    big = torch.polar(mag, torch.linspace(-1.0, 1.0, N, device=dev)[None, None, :] * mag)
+    del mag
+    synth = {}
+    for B_, img in ((B, batch["image_c"]), (128, big)):
+        for key in ("split", "cc", "cc", "split"):
+            with cc_route(ck) if key == "cc" else contextlib.nullcontext():
+                synth.setdefault(f"{key}_b{B_}", []).append(cuda_ms(
+                    lambda: task.batch_from_images(img), iters=10 if B_ == B else 3))
+        turns = {k: v for k, v in synth.items() if k.endswith(f"_b{B_}")}
+        print(f"[time] radial batch_from_images (f32 A + DCF adjoint) at batch {B_}: split "
+              f"route {sum(synth[f'split_b{B_}']) / 2:.4f} ms, CUDA-core route "
+              f"{sum(synth[f'cc_b{B_}']) / 2:.4f} ms (turns {turns}) ({card})")
+    del big
     profile_recon(one_recon, card)
     with cc_route(ck):
         print("[profile] the same recon with the per-angle bf16 calls on the CUDA cores:")
@@ -977,11 +1086,15 @@ def radial_phases(dev, card, gen):
           f"{sigmas['tc']:.6g}, CUDA cores {sigmas['cc']:.6g}, rel {sigma_rel:.3e} (tol 5e-3)")
     check(sigma_rel <= TOL["bfloat16"], "radial sigma moved beyond the bf16 tolerance")
     stats = {"recon_slices_per_s": B / recon_s, "recon_ms_per_batch": recon_s * 1e3,
-             "synth_ms": synth_ms, "batch": B, "psnr_mean": float(np.mean(all_ps)),
-             "ssim_mean": float(np.mean(all_ss)), "adjoint_dot_rel": dot_rel,
+             "synth_ms": sum(synth[f"split_b{B}"]) / 2,
+             "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
+             "batch_from_images_ms_turns": synth, "batch": B,
+             "psnr_mean": float(np.mean(all_ps)), "ssim_mean": float(np.mean(all_ss)),
+             "adjoint_dot_rel": dot_rel, "adjoint_dot_rel_f32": dot_f32,
              "recon_ms_turns": {k: [v * 1e3 for v in vs] for k, vs in recon_turns.items()},
              "host_enqueue_ms": enqueue_ms, "call_profile_ms": shares,
              "adjoint_split_sweep_b8": group_sweep,
+             "split_adjoint_split_sweep_b8": group_split_sweep,
              "bf16_dot_test": dot_bf16, "sigma": task.sigma, "sigma_routes": sigmas,
              "sino_rel_cpu": sino_rel, "f0_rel_cpu": f0_rel, "small_rel_cpu": small_rel}
     return entries, stats
@@ -1066,13 +1179,14 @@ def probe_phases(dev, card, gen):
         print(f"[check] packed exact-trig bf16 group {g}: fwd rel {r:.3e}, adj rel {ra:.3e} "
               f"(tol 5e-3)")
         check(r <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "packed exact-trig kernel")
-        # float32: packed is the shipped per-angle operator
-        r = rel(pk.project_group_packed(f, *rows(g), f32), ck.project_group(f, *rows(g), f32))
+        # float32: packed is the per-angle operator of the CUDA-core kernels
+        # (radon_group.cu), the kernels the probe was built to A/B against
+        r = rel(pk.project_group_packed(f, *rows(g), f32), ck._project_group_cc(f, *rows(g), f32))
         ra = rel(pk.backproject_group_packed(p[g], *rows(g), N, f32),
-                 ck.backproject_group(p[g], *rows(g), N, f32))
-        print(f"[check] packed vs shipped per-angle kernels, f32 group {g}: fwd rel {r:.3e}, "
-              f"adj rel {ra:.3e} (tol 1e-5)")
-        check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the shipped ones in f32")
+                 ck._backproject_group_cc(p[g], *rows(g), N, f32))
+        print(f"[check] packed vs the CUDA-core per-angle kernels, f32 group {g}: fwd rel "
+              f"{r:.3e}, adj rel {ra:.3e} (tol 1e-5)")
+        check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the CUDA-core ones in f32")
         # doubling against the exact-trig CUDA-core pair kernel: the probe's 2e-2
         for cdt in (f32, bf16):
             r = rel(dbl(g, cdt, pk.project_pair_group_doubling),
@@ -1188,12 +1302,18 @@ def main():
     print(f"[chip_smoke] built {sorted(logs)} in {build_s:.2f} s")
     hgmma = {**hgmma_counts(_build.build("radon_pair_tc"), TC_KERNELS),
              **hgmma_counts(_build.build("radon_pair_split"), SPLIT_KERNELS),
-             **hgmma_counts(_build.build("radon_group_tc"), GROUP_TC_KERNELS)}
+             **hgmma_counts(_build.build("radon_group_tc"), GROUP_TC_KERNELS),
+             **hgmma_counts(_build.build("radon_group_split"), GROUP_SPLIT_KERNELS)}
     print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu, "
-          f"radon_pair_split.cu and radon_group_tc.cu: {hgmma}")
+          f"radon_pair_split.cu, radon_group_tc.cu and radon_group_split.cu: {hgmma}")
     for name in ("pair_tc_fwd", "pair_tc_adj", "pair_split_fwd", "pair_split_adj",
-                 "group_tc_fwd", "group_tc_adj", "group_tc_fwd_stage3", "group_tc_adj_stage3t"):
+                 "group_tc_fwd", "group_tc_adj", "group_tc_fwd_stage3", "group_tc_adj_stage3t",
+                 "group_split_fwd", "group_split_adj"):
         check(hgmma[name] > 0, f"{name} (a tensor-core product) has no HGMMA instruction")
+    # the split products: three wgmmas (hi·hi, hi·lo, lo·hi) per 16-deep
+    # step, four steps per 64-deep chunk
+    for name in ("pair_split_fwd", "pair_split_adj", "group_split_fwd", "group_split_adj"):
+        check(hgmma[name] % 12 == 0, f"{name}: {hgmma[name]} HGMMA, not 3 per 16-deep step")
 
     from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.data.synth import random_phantom_batch
@@ -1433,10 +1553,10 @@ def main():
     print(f"[time] yardstick: bf16 torch.matmul of stage 1's shape "
           f"({P} x [{B * N}x{N}] @ [{N}x{2 * K}]): {mm_ms:.4f} ms")
     replaces = {
-        "project_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:349",
-        "backproject_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:380",
+        "project_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:350",
+        "backproject_pair_group": "pdunet_tpu/ops/radon/pallas_kernels.py:381",
     }
-    split_bound = split_bound_ms(B, N, P, K, S)
+    split_bound = split_bound_ms(pair_cost(B, N, P, K, S), 4 * B * P * N * N * K)
     fp32_bound = bound_ms(fl, nb, "float32")
     print(f"[time] bounds per group call at B={B}: split-bf16 route {split_bound[0]:.4f} ms "
           f"({split_bound[1]}: stage 1 as 3 bf16 products at 989 TFLOP/s, stages 2-3 at "
@@ -1459,7 +1579,8 @@ def main():
     # beside a full-f32 torch.matmul of stage 1's shape (TF32 off) as the yardstick
     ab32 = route_ab(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
                     lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen,
-                    cdt=torch.float32, bound=lambda B_: split_bound_ms(B_, N, P, K, S),
+                    cdt=torch.float32,
+                    bound=lambda B_: split_bound_ms(pair_cost(B_, N, P, K, S), 4 * B_ * P * N * N * K),
                     key="split")
     # the adjoints' slice counts at B = 4 (pair_adjoint_splits picks
     # ⌊n_sms / tiles⌋, capped at P): bf16 (128 x 256 tiles), split (128 x 128)
@@ -1535,7 +1656,9 @@ def main():
     radial_entries, radial_stats = radial_phases(dev, card, gen)
     for e in radial_entries:
         if e["name"] in ("project_group", "backproject_group"):
-            e["hgmma"] = hgmma["group_tc_fwd" if e["name"] == "project_group" else "group_tc_adj"]
+            fwd_op = e["name"] == "project_group"
+            e["hgmma"] = hgmma["group_tc_fwd" if fwd_op else "group_tc_adj"]
+            e["hgmma_f32"] = hgmma["group_split_fwd" if fwd_op else "group_split_adj"]
     probe_entries = probe_phases(dev, card, gen)
     bench_row = bench_phase(card)
 

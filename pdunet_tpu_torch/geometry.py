@@ -125,11 +125,12 @@ class ParallelPlan:
             setattr(self, name, arr)
         self._index = {}
         # the tensor-core kernels' trig tables by angle group, made at first
-        # use (ops/radon/parallel.py): the pair kernels' (bf16 and split-bf16
-        # routes) and the per-angle kernels'
+        # use (ops/radon/parallel.py): the pair kernels' and the per-angle
+        # kernels', each for the bf16 and the split-bf16 (float32) route
         self.pair_tables = {}
         self.pair_split_tables = {}
         self.group_tables = {}
+        self.group_split_tables = {}
 
     def index(self, name: str) -> torch.Tensor:
         """``meta[name]`` (a tuple of row indices) as a long tensor on the

@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(ST_THREADS)
 pair_tc_adj_stage3t(const float* __restrict__ p, const float* __restrict__ msk,
                     const float* __restrict__ Wc, const float* __restrict__ Ws,
                     float* __restrict__ shat4, int rows, int P, int K, int Kp, int S) {
-  pair_stage3t<true>(p, msk, Wc, Ws, shat4, rows, P, K, Kp, S);
+  pair_stage3t<2, true>(p, msk, Wc, Ws, shat4, rows, P, K, Kp, S);
 }
 
 __global__ void __launch_bounds__(TC_THREADS, 1)

@@ -1,8 +1,10 @@
 // Tensor-core (sm_90a, bf16 operands) projector machinery shared by
 // radon_pair_tc.cu (mirror pairs, M = 2 members per stage-1 row group) and
-// radon_group_tc.cu (per angle, M = 1). Each including file names its own
-// kernels (thin __global__ wrappers around the bodies below) and its C entry
-// points; the notes on what each replaces and what bounds it are there.
+// radon_group_tc.cu (per angle, M = 1), and by their float32 split-bf16
+// twins radon_pair_split.cu (M = 2) and radon_group_split.cu (M = 1). Each
+// including file names its own kernels (thin __global__ wrappers around the
+// bodies below) and its C entry points; the notes on what each replaces and
+// what bounds it are there.
 //
 // The function (notation of radon_pair.cu / radon_group.cu): per row group g
 // (a pair, or an angle) of one angle group, with members m < M,
@@ -53,7 +55,8 @@
 //
 // Padded rows, columns and frequencies are zero in the tables.
 //
-// Split-bf16 route (float32 operands, SPLIT = true; radon_pair_split.cu).
+// Split-bf16 route (float32 operands, SPLIT = true; radon_pair_split.cu,
+// radon_group_split.cu).
 // One bf16 product keeps ~3 significant digits, far from the f32 contract
 // (1e-5 relative). Each stage-1 / 1ᵀ operand x is carried as hi = bf16(x)
 // and lo = bf16(x − hi) (x − hi is exact in f32), and every 16-deep step
@@ -1013,9 +1016,10 @@ __device__ __forceinline__ void tc_w_prep(const float* __restrict__ Wc,
 }
 
 // ---------------------------------------------------------------------------
-// Mirror-pair stages 3 and 3ᵀ on the CUDA cores (M = 2), for both pair
-// routes: ROUND rounds Ŝ, W and p to bf16 where the plain version does (the
-// bf16 route); without it everything stays f32 (the split route).
+// Stages 3 and 3ᵀ on the CUDA cores, for both pair routes (M = 2) and the
+// per-angle split route (M = 1): ROUND rounds Ŝ, W and p to bf16 where the
+// plain version does (the pair bf16 route); without it everything stays
+// f32 (the split routes).
 // ---------------------------------------------------------------------------
 constexpr int ST_ROWS = 8;       // rows per stage-3 / 3ᵀ block
 constexpr int ST3T_TK = 32;      // frequencies per stage-3ᵀ block (4 per warp)
@@ -1029,10 +1033,12 @@ __device__ __forceinline__ float rnd_if(float x) {
 
 // Forward stage 3: Ŝ = Σ_rt part[rt] (row-tile order), rounded for ROUND;
 // then out[row, s] = Σ_k Re Ŝ Wc[k, s] − Im Ŝ Ws[k, s] for ST_ROWS rows
-// (row = b·2P + 2p + m) and ST3_COLS columns per block. Ŝ sits in shared
-// memory as [k][row][re, im], so one 16-byte read serves two rows; each
-// thread owns two columns, and the k loop is split ST3_SPLIT ways across the
-// block (partial sums added in a fixed order).
+// and ST3_COLS columns per block. tc_fwd's part (R, B, P, M, K, 2) is read
+// as (R, rows, K, 2) with row = (b·P + p)·M + m, the output row, so one
+// body serves any M. Ŝ sits in shared memory as [k][row][re, im], so one
+// 16-byte read serves two rows; each thread owns two columns, and the k loop
+// is split ST3_SPLIT ways across the block (partial sums added in a fixed
+// order).
 // grid (ceil(rows/ST_ROWS), ceil(S/ST3_COLS)); ST_THREADS threads;
 // ST_ROWS·(2K + ST3_SPLIT·ST3_COLS) floats of dynamic shared memory.
 template <bool ROUND>
@@ -1098,18 +1104,20 @@ __device__ __forceinline__ void pair_stage3(const float* __restrict__ part,
 }
 
 // Adjoint stage 3ᵀ: Ŝ_m[k] = (Σ_s p_m[s] Wc[k, s], −Σ_s p_m[s] Ws[k, s]),
-// p (rounded for ROUND) with member b masked by msk, Ŝ rounded for ROUND.
-// One warp per k, lanes over s (coalesced W). Rows row = (b·P + p)·2 + m of
-// p (B, 2P, S); shat4 (B, P, Kp, 4) = [re_a, im_a, re_b, im_b], zero for
-// k ≥ K. grid (ceil(rows/ST_ROWS), ceil(Kp/ST3T_TK)); ST_THREADS threads;
-// ST_ROWS·S floats of dynamic shared memory.
-template <bool ROUND>
+// p (rounded for ROUND) with member b masked by msk (M = 2; msk is not read
+// for M = 1), Ŝ rounded for ROUND. One warp per k, lanes over s (coalesced
+// W). Rows row = (b·P + p)·M + m of p (B, M·P, S); shat (B, P, Kp, 2M) =
+// M·[re, im] (M = 2: [re_a, im_a, re_b, im_b]), zero for k ≥ K; the layout
+// tc_adj_split<M> reads. grid (ceil(rows/ST_ROWS), ceil(Kp/ST3T_TK));
+// ST_THREADS threads; ST_ROWS·S floats of dynamic shared memory.
+template <int M, bool ROUND>
 __device__ __forceinline__ void pair_stage3t(const float* __restrict__ p,
                                              const float* __restrict__ msk,
                                              const float* __restrict__ Wc,
                                              const float* __restrict__ Ws,
-                                             float* __restrict__ shat4, int rows, int P, int K,
+                                             float* __restrict__ shat, int rows, int P, int K,
                                              int Kp, int S) {
+  static_assert(M == 1 || M == 2, "one or two members per row group");
   extern __shared__ float4 smem4[];
   float* p_s = reinterpret_cast<float*>(smem4);  // [ST_ROWS][S]
   const int row0 = blockIdx.x * ST_ROWS;
@@ -1120,7 +1128,7 @@ __device__ __forceinline__ void pair_stage3t(const float* __restrict__ p,
     float v = 0.f;
     if (r < nr) {
       v = rnd_if<ROUND>(p[(size_t)row * S + e % S]);
-      if (row & 1) v *= msk[(row >> 1) % P];
+      if (M == 2 && (row & 1)) v *= msk[(row >> 1) % P];
     }
     p_s[e] = v;
   }
@@ -1156,7 +1164,8 @@ __device__ __forceinline__ void pair_stage3t(const float* __restrict__ p,
       for (int r = 0; r < ST_ROWS; ++r)
         if (r == lane) { vr = re[r]; vi = im[r]; }
       const int row = row0 + lane;
-      float* dst = shat4 + ((size_t)(row >> 1) * Kp + k) * 4 + 2 * (row & 1);
+      // (row >> (M − 1), row & (M − 1)): (row group, member)
+      float* dst = shat + ((size_t)(row >> (M - 1)) * Kp + k) * (2 * M) + 2 * (row & (M - 1));
       dst[0] = rnd_if<ROUND>(vr);
       dst[1] = rnd_if<ROUND>(-vi);
     }

@@ -16,11 +16,13 @@ Two families replace the Pallas kernels of
 * per-angle, ``project_group`` / ``backproject_group``
   (``project_group_pallas`` / ``backproject_group_pallas``), for plans whose
   angles do not pair (golden-angle spokes, the radial fourier-slice NUFFT),
-  with the same two routes: float32 operands run the CUDA-core kernels of
-  ``csrc/radon_group.cu``; bf16 operands the tensor-core kernels of
+  with the same two routes, one member per angle of the pair machinery in
+  ``csrc/radon_tc.cuh``: bf16 operands run the tensor-core kernels of
   ``csrc/radon_group_tc.cu``, which read the tables of
-  :func:`build_group_tables` (one member per angle of the pair machinery
-  in ``csrc/radon_tc.cuh``).
+  :func:`build_group_tables`; float32 operands the split-bf16 kernels of
+  ``csrc/radon_group_split.cu``, which read :func:`build_group_split_tables`'
+  tables. The CUDA-core kernels of ``csrc/radon_group.cu`` stay as an A/B
+  baseline that no dispatch reaches.
 
 For a CUDA tensor each wrapper launches its hand-written kernel (and raises
 if it cannot); for a CPU tensor it runs the plain version below, which is
@@ -33,10 +35,10 @@ f64 for a float64 input on the CPU, which ``gradcheck`` uses); with
 rounded to bf16 where the twin casts them, and every sum accumulates in f32.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, its
-bf16 tensor-core launches in ``.launches_tc`` and (pair wrappers) its
-split-bf16 launches in ``.launches_split``; the CUDA-core pair functions
-``_project_pair_cc`` / ``_backproject_pair_cc`` count theirs, and the
-table builders their builds. A CPU call does not count.
+bf16 tensor-core launches in ``.launches_tc`` and its split-bf16 launches
+in ``.launches_split``; the CUDA-core functions (``_project_pair_cc``,
+``_project_group_cc``, ...) count theirs, and the table builders their
+builds. A CPU call does not count.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ import torch
 
 __all__ = ["project_pair_group", "backproject_pair_group", "build_pair_tables",
            "build_pair_split_tables", "pair_adjoint_splits", "project_group", "backproject_group",
-           "build_group_tables", "group_adjoint_splits", "reset_launch_counts"]
+           "build_group_tables", "build_group_split_tables", "group_adjoint_splits",
+           "reset_launch_counts"]
 
 
 def _q(x: torch.Tensor, cdt) -> torch.Tensor:
@@ -190,12 +193,18 @@ def _split(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
 
 
-def _pair_split_tables(pos, sha, shb, spec, L):
-    """Plain version of :func:`build_pair_split_tables`: (T, phi), T̂ as
-    (2, P, Np, 2Kp) bf16 [hi, lo] and [φ_a, φ_b] as (2, P, Np, 2Kp) in the
-    working dtype, unrounded (layout of :func:`_interleave`)."""
-    tab = _interleave(_pair_spectral_tensors(pos, sha, shb, spec, L), torch.float32)
+def _split_tables(trig):
+    """The split route's (T, phi) from (re, im) pairs of f32 trig tensors,
+    T̂ first: T̂ as (2, P, Np, 2Kp) bf16 [hi, lo] and the φ tables as (M, P,
+    Np, 2Kp) in the working dtype, unrounded (layout of :func:`_interleave`)."""
+    tab = _interleave(trig, torch.float32)
     return torch.stack(_split(tab[0])).to(torch.bfloat16), tab[1:].contiguous()
+
+
+def _pair_split_tables(pos, sha, shb, spec, L):
+    """Plain version of :func:`build_pair_split_tables`: T̂ hi/lo and
+    [φ_a, φ_b] (:func:`_split_tables`)."""
+    return _split_tables(_pair_spectral_tensors(pos, sha, shb, spec, L))
 
 
 def _tab_parts(tab, dtype):
@@ -329,19 +338,26 @@ def _group_tables(pos, shift, spec, L, cdt=torch.bfloat16):
     return _interleave(_spectral_tensors(pos, shift, spec, L, cdt), cdt)
 
 
+def _group_split_tables(pos, shift, spec, L):
+    """Plain version of :func:`build_group_split_tables`: T̂ hi/lo and φ
+    (:func:`_split_tables`)."""
+    return _split_tables(_spectral_tensors(pos, shift, spec, L))
+
+
 def _group_forward_tc(f, tab, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
     """The per-angle tensor-core forward's arithmetic in its order, from the
-    tables (:func:`_pair_forward_tc` with one member per angle). Equals
-    :func:`_project_group` up to f32 summation order."""
+    tables (:func:`_pair_forward_tc` with one member per angle; split tables
+    with ``cdt=torch.float32``). Equals :func:`_project_group` up to f32
+    summation order (and, split, the dropped lo·lo term)."""
     B, N, _ = f.shape
-    _, A, Np, K2p = tab.shape
+    T, phi = _tab_parts(tab, f.dtype)
+    _, A, Np, K2p = T.shape
     K = Wc.shape[0]
     R = Np // _TC_ROWS
-    t = tab.to(f.dtype)
-    g = torch.einsum("brc,acn->barn", _padded_image(f, Np, contract_x, cdt), t[0])
+    g = _stage1("brc,acn->barn", _padded_image(f, Np, contract_x, cdt), T)
     gr = g[..., 0::2].reshape(B, A, R, _TC_ROWS, -1)
     gi = g[..., 1::2].reshape(B, A, R, _TC_ROWS, -1)
-    c, s = (t[1][..., ri::2].reshape(A, R, _TC_ROWS, -1) for ri in (0, 1))
+    c, s = (phi[0][..., ri::2].reshape(A, R, _TC_ROWS, -1) for ri in (0, 1))
     part = torch.stack([(gr * c - gi * s).sum(3), (gr * s + gi * c).sum(3)])
     shat = _q(_tile_sum(part.movedim(3, 0))[..., :K], cdt)  # (2, B, A, K)
     return shat[0] @ _q(Wc, cdt) - shat[1] @ _q(Ws, cdt)
@@ -350,24 +366,25 @@ def _group_forward_tc(f, tab, Wc, Ws, contract_x: bool, cdt=torch.bfloat16):
 def _group_adjoint_tc(p, tab, Wc, Ws, contract_x: bool, N: int, G: int,
                       cdt=torch.bfloat16):
     """The per-angle tensor-core adjoint's arithmetic in its order, from the
-    tables: Ŝ = Wᵀ p rounded, h = Ŝ·conj(φ) built per (angle, k) and
-    rounded, one GEMM over (angle, k, re/im) per slice of
+    tables (as :func:`_group_forward_tc`; split, h and T̂ go into the
+    products as hi and lo): Ŝ = Wᵀ p rounded, h = Ŝ·conj(φ) built per
+    (angle, k) and rounded, one GEMM over (angle, k, re/im) per slice of
     :func:`group_adjoint_splits`, the G partial images summed in slice
     order. Equals :func:`_backproject_group` up to f32 summation order."""
     B, A, S = p.shape
-    _, _, Np, K2p = tab.shape
+    T, phi = _tab_parts(tab, p.dtype)
+    _, _, Np, K2p = T.shape
     K = Wc.shape[0]
-    t = tab.to(p.dtype)
     pq = _q(p, cdt)
     shat = p.new_zeros(B, A, 1, K2p // 2, 2)
     shat[:, :, 0, :K, 0] = _q(pq @ _q(Wc, cdt).T, cdt)
     shat[:, :, 0, :K, 1] = _q(-(pq @ _q(Ws, cdt).T), cdt)
     sr, si = shat[..., 0], shat[..., 1]                       # (B, A, 1, Kp)
-    c, s = t[1][None, ..., 0::2], t[1][None, ..., 1::2]       # (1, A, Np, Kp)
+    c, s = phi[0][None, ..., 0::2], phi[0][None, ..., 1::2]   # (1, A, Np, Kp)
     h = torch.empty(B, A, Np, K2p, dtype=p.dtype, device=p.device)
     h[..., 0::2] = sr * c + si * s
     h[..., 1::2] = -(sr * s) + si * c
-    return _depth_gemm(h, t[:1], N, G, contract_x, cdt)
+    return _depth_gemm(h, T, N, G, contract_x, cdt)
 
 
 def _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
@@ -431,6 +448,9 @@ _ARGTYPES = {
     "radon_group_tc_tables": [_P] * 4 + [_I] * 5 + [_F, _P],
     "radon_group_tc_project": [_P] * 9 + [_I] * 9 + [_P],
     "radon_group_tc_backproject": [_P] * 9 + [_I] * 10 + [_P],
+    "radon_group_split_tables": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "radon_group_split_project": [_P] * 8 + [_I] * 8 + [_P],
+    "radon_group_split_backproject": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 
@@ -504,21 +524,25 @@ def _check_tables(tables, n_tab, P, N, K, dev):
         raise ValueError("tables must be contiguous and 16-byte aligned")
 
 
-def _check_split_tables(tables, P, N, K, dev):
-    """The split route's tables (:func:`build_pair_split_tables`): T̂ as
-    (2, P, Np, 2Kp) bf16 and φ as (2, P, Np, 2Kp) float32 on ``dev``."""
+def _check_split_tables(tables, n_phi, P, N, K, dev):
+    """The split route's tables: T̂ as (2, P, Np, 2Kp) bf16 and φ as (n_phi,
+    P, Np, 2Kp) float32 on ``dev`` (2 φ tables for pairs,
+    :func:`build_pair_split_tables`; 1 per angle,
+    :func:`build_group_split_tables`)."""
     if not isinstance(tables, tuple) or len(tables) != 2:
-        raise ValueError("a CUDA float32 pair projector call needs the plan's split trig "
-                         "tables (build_pair_split_tables of the same plan rows)")
+        builder = "build_pair_split_tables" if n_phi == 2 else "build_group_split_tables"
+        raise ValueError(f"a CUDA float32 projector call needs the plan's split trig "
+                         f"tables ({builder} of the same plan rows)")
     Np, K2p = _tc_dims(N, K)
-    for name, t, dt in zip(("T", "phi"), tables, (torch.bfloat16, torch.float32)):
+    for name, t, dt, n in zip(("T", "phi"), tables, (torch.bfloat16, torch.float32),
+                              (2, n_phi)):
         if t.device != dev:
             raise ValueError(f"split table {name} is on {t.device}, expected {dev}")
         if t.dtype != dt:
             raise TypeError(f"split table {name} must be {dt}, got {t.dtype}")
-        if tuple(t.shape) != (2, P, Np, K2p):
+        if tuple(t.shape) != (n, P, Np, K2p):
             raise ValueError(f"split table {name} has shape {tuple(t.shape)}, "
-                             f"expected {(2, P, Np, K2p)}")
+                             f"expected {(n, P, Np, K2p)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"split table {name} must be contiguous and 16-byte aligned")
 
@@ -676,7 +700,7 @@ def project_pair_group(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     P = pos.shape[0]
     dev = f.device
     if split:
-        _check_split_tables(tables, P, N, K, dev)
+        _check_split_tables(tables, 2, P, N, K, dev)
     else:
         _check_tables(tables, 3, P, N, K, dev)
     _check("f", f, (B, N, N), dev)
@@ -716,7 +740,7 @@ def backproject_pair_group(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L,
     P = pos.shape[0]
     dev = p.device
     if split:
-        _check_split_tables(tables, P, N, K, dev)
+        _check_split_tables(tables, 2, P, N, K, dev)
     else:
         _check_tables(tables, 3, P, N, K, dev)
     _check("p", p, (B, 2 * P, S), dev)
@@ -751,10 +775,10 @@ def _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev):
 
 
 def _project_group_cc(f, pos, shift, spec, Wc, Ws, L, contract_x: bool, cdt):
-    """The CUDA-core kernel of ``csrc/radon_group.cu``: the float32 route of
-    :func:`project_group`; with bf16 operands only an A/B baseline
-    (``chip_smoke.py``, ``scripts/pack_proto.py``) that no dispatch
-    reaches. K and S are read off ``Wc``."""
+    """The CUDA-core kernel of ``csrc/radon_group.cu``, float32 or bf16
+    operands: the A/B baseline of both tensor-core routes of
+    :func:`project_group` (``chip_smoke.py``, ``scripts/pack_proto.py``),
+    which no dispatch reaches. K and S are read off ``Wc``."""
     _check_device(f)
     bf16 = _compute_flag(cdt)
     K, S = Wc.shape
@@ -770,6 +794,7 @@ def _project_group_cc(f, pos, shift, spec, Wc, Ws, L, contract_x: bool, cdt):
                 f.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
                 Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(), out.data_ptr(),
                 B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
+    _project_group_cc.launches += 1
     return out
 
 
@@ -807,6 +832,7 @@ def _backproject_group_cc(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: i
                 Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
                 None if part is None else part.data_ptr(), out.data_ptr(),
                 B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16)
+    _backproject_group_cc.launches += 1
     return out
 
 
@@ -836,14 +862,41 @@ def build_group_tables(pos, shift, spec, L):
     return tab
 
 
-def group_adjoint_splits(B: int, N: int, A: int, n_sms: int) -> int:
-    """How many slices the per-angle tensor-core adjoint splits its depth
-    (the angles' 64-deep chunks of (k, re/im), in order) into: as many as
-    its (128-row x 256-column) output tiles times the slices fit in one wave
-    of one block per SM, so that no second, part-empty wave runs; never
+def build_group_split_tables(pos, shift, spec, L):
+    """The per-angle split-bf16 route's trig tables of one angle group:
+    (T, phi), T̂ as (2, A, Np, 2Kp) bf16 [hi, lo] and φ as (1, A, Np, 2Kp)
+    float32, (re, im) interleaved along the frequency axis and zero-padded
+    as in :func:`build_group_tables` (layout of :func:`_group_split_tables`).
+    K is read off ``spec``. CPU tensors run :func:`_group_split_tables`;
+    CUDA tensors launch the kernel of ``csrc/radon_group_split.cu``, which
+    forms each value with the CUDA-core kernels' arithmetic."""
+    if pos.device.type == "cpu":
+        return _group_split_tables(pos, shift, spec, L)
+    _check_device(pos)
+    A, N = pos.shape
+    K = spec.shape[0]
+    dev = pos.device
+    for name, t in (("pos", pos), ("shift", shift)):
+        _check(name, t, (A, N), dev)
+    _check("spec", spec, (K,), dev)
+    Np, K2p = _tc_dims(N, K)
+    T = torch.empty((2, A, Np, K2p), dtype=torch.bfloat16, device=dev)
+    phi = torch.empty((1, A, Np, K2p), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("radon_group_split_tables", pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
+                T.data_ptr(), phi.data_ptr(), A, N, Np, K, K2p // 2, 2.0 * math.pi / L)
+    build_group_split_tables.launches += 1
+    return T, phi
+
+
+def group_adjoint_splits(B: int, N: int, A: int, n_sms: int, cols: int = _TC_ADJ_COLS) -> int:
+    """How many slices a per-angle tensor-core adjoint splits its depth (the
+    angles' 64-deep chunks of (k, re/im), in order) into: as many as its
+    (128-row x ``cols``-column) output tiles times the slices fit in one
+    wave of one block per SM, so that no second, part-empty wave runs; never
     more slices than angles. Each slice writes a partial image, summed in
-    slice order."""
-    tiles = B * math.ceil(N / _TC_ROWS) * math.ceil(N / _TC_ADJ_COLS)
+    slice order. ``cols`` is 256 for the bf16 route, 128 for the split one."""
+    tiles = B * math.ceil(N / _TC_ROWS) * math.ceil(N / cols)
     return max(1, min(A, n_sms // tiles))
 
 
@@ -853,40 +906,51 @@ def project_group(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
     f (B,N,N) → (B, A_g, S) float32. K and S are read off ``Wc``; no
     relation between K and L is assumed.
 
-    CPU tensors run :func:`_project_group`. CUDA tensors launch, with
-    float32 operands, the CUDA-core kernel of ``csrc/radon_group.cu``; with
-    bf16 operands the tensor-core kernels of ``csrc/radon_group_tc.cu``,
-    which read ``tables`` (:func:`build_group_tables` of the same rows) and
-    raise without them."""
+    CPU tensors run :func:`_project_group`. CUDA tensors launch, with bf16
+    operands, the tensor-core kernels of ``csrc/radon_group_tc.cu``, which
+    read ``tables`` (:func:`build_group_tables` of the same rows); with
+    float32 operands the split-bf16 kernels of ``csrc/radon_group_split.cu``,
+    which read ``tables`` from :func:`build_group_split_tables`. Either
+    raises without its tables."""
     if f.device.type == "cpu":
         return _project_group(f, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
     _check_device(f)
-    if not _compute_flag(cdt):
-        out = _project_group_cc(f, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
-        project_group.launches += 1
-        return out
+    split = not _compute_flag(cdt)
     K, S = Wc.shape
     B, N, _ = f.shape
     A = pos.shape[0]
     dev = f.device
-    _check_tables(tables, 2, A, N, K, dev)
+    if split:
+        _check_split_tables(tables, 1, A, N, K, dev)
+    else:
+        _check_tables(tables, 2, A, N, K, dev)
     _check("f", f, (B, N, N), dev)
     _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
     Np, K2p = _tc_dims(N, K)
-    Sp = _tc_pad(S)
     bf16 = torch.bfloat16
     out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
-    fb = torch.empty((B, Np, Np), dtype=bf16, device=dev)
+    # F in bf16; split: its hi and lo planes
+    fb = torch.empty((1 + split, B, Np, Np), dtype=bf16, device=dev)
     part = torch.empty((Np // _TC_ROWS, B, A, K, 2), dtype=torch.float32, device=dev)
-    sb = torch.empty((_tc_pad(B * A), K2p), dtype=bf16, device=dev)
-    wb = torch.empty((K2p, Sp), dtype=bf16, device=dev)
     with torch.cuda.device(dev):
-        _launch("radon_group_tc_project",
-                f.data_ptr(), tables.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
-                fb.data_ptr(), part.data_ptr(), sb.data_ptr(), wb.data_ptr(), out.data_ptr(),
-                B, N, Np, A, K, K2p // 2, S, Sp, int(contract_x))
+        if split:
+            _launch("radon_group_split_project",
+                    f.data_ptr(), *_table_ptrs(tables), Wc.data_ptr(), Ws.data_ptr(),
+                    fb.data_ptr(), part.data_ptr(), out.data_ptr(),
+                    B, N, Np, A, K, K2p // 2, S, int(contract_x))
+        else:
+            Sp = _tc_pad(S)
+            sb = torch.empty((_tc_pad(B * A), K2p), dtype=bf16, device=dev)
+            wb = torch.empty((K2p, Sp), dtype=bf16, device=dev)
+            _launch("radon_group_tc_project",
+                    f.data_ptr(), tables.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
+                    fb.data_ptr(), part.data_ptr(), sb.data_ptr(), wb.data_ptr(),
+                    out.data_ptr(), B, N, Np, A, K, K2p // 2, S, Sp, int(contract_x))
     project_group.launches += 1
-    project_group.launches_tc += 1
+    if split:
+        project_group.launches_split += 1
+    else:
+        project_group.launches_tc += 1
     return out
 
 
@@ -900,45 +964,54 @@ def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
     if p.device.type == "cpu":
         return _backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x, cdt)
     _check_device(p)
-    if not _compute_flag(cdt):
-        out = _backproject_group_cc(p, pos, shift, spec, Wc, Ws, L, contract_x, N, cdt)
-        backproject_group.launches += 1
-        return out
+    split = not _compute_flag(cdt)
     K, S = Wc.shape
     B, A, _ = p.shape
     dev = p.device
-    _check_tables(tables, 2, A, N, K, dev)
+    if split:
+        _check_split_tables(tables, 1, A, N, K, dev)
+    else:
+        _check_tables(tables, 2, A, N, K, dev)
     _check("p", p, (B, A, S), dev)
     _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
     Np, K2p = _tc_dims(N, K)
-    G = group_adjoint_splits(B, N, A,
-                             torch.cuda.get_device_properties(dev).multi_processor_count)
-    Sp = _tc_pad(S)
+    G = group_adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count,
+                             _SPLIT_ADJ_COLS if split else _TC_ADJ_COLS)
     out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
-    pb = torch.empty((_tc_pad(B * A), Sp), dtype=torch.bfloat16, device=dev)
-    wb = torch.empty((K2p, Sp), dtype=torch.bfloat16, device=dev)
     shat = torch.empty((B, A, K2p // 2, 2), dtype=torch.float32, device=dev)
     part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
             if G > 1 else None)
     with torch.cuda.device(dev):
-        _launch("radon_group_tc_backproject",
-                p.data_ptr(), tables.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
-                pb.data_ptr(), wb.data_ptr(), shat.data_ptr(),
-                None if part is None else part.data_ptr(), out.data_ptr(),
-                B, N, Np, A, K, K2p // 2, S, Sp, G, int(contract_x))
+        if split:
+            _launch("radon_group_split_backproject",
+                    p.data_ptr(), *_table_ptrs(tables), Wc.data_ptr(), Ws.data_ptr(),
+                    shat.data_ptr(), None if part is None else part.data_ptr(),
+                    out.data_ptr(), B, N, Np, A, K, K2p // 2, S, G, int(contract_x))
+        else:
+            Sp = _tc_pad(S)
+            pb = torch.empty((_tc_pad(B * A), Sp), dtype=torch.bfloat16, device=dev)
+            wb = torch.empty((K2p, Sp), dtype=torch.bfloat16, device=dev)
+            _launch("radon_group_tc_backproject",
+                    p.data_ptr(), tables.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
+                    pb.data_ptr(), wb.data_ptr(), shat.data_ptr(),
+                    None if part is None else part.data_ptr(), out.data_ptr(),
+                    B, N, Np, A, K, K2p // 2, S, Sp, G, int(contract_x))
     backproject_group.launches += 1
-    backproject_group.launches_tc += 1
+    if split:
+        backproject_group.launches_split += 1
+    else:
+        backproject_group.launches_tc += 1
     return out
 
 
 def reset_launch_counts():
     for fn in (project_pair_group, backproject_pair_group, build_pair_tables,
                build_pair_split_tables, _project_pair_cc, _backproject_pair_cc,
-               project_group, backproject_group, build_group_tables):
+               project_group, backproject_group, build_group_tables, build_group_split_tables,
+               _project_group_cc, _backproject_group_cc):
         fn.launches = 0
     for fn in (project_pair_group, backproject_pair_group, project_group, backproject_group):
         fn.launches_tc = 0
-    for fn in (project_pair_group, backproject_pair_group):
         fn.launches_split = 0
 
 

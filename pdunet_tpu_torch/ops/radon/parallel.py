@@ -8,13 +8,13 @@ kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
 Each pair is an exact transpose, so ``make_parallel_ops`` pairs them as
 each other's gradient.
 
-With bf16 operands on a CUDA tensor both kernel families run on the tensor
-cores and read the plan's trig tables (``build_pair_tables`` into
-``plan.pair_tables``, ``build_group_tables`` into ``plan.group_tables``);
-with float32 operands the pair kernels run the split-bf16 tensor-core route
-and read ``build_pair_split_tables``' tables (``plan.pair_split_tables``).
-Each is built on the card at the plan's first such call, one per angle
-group, and kept on the plan for every later call.
+On a CUDA tensor both kernel families run on the tensor cores and read the
+plan's trig tables: with bf16 operands ``build_pair_tables`` into
+``plan.pair_tables`` and ``build_group_tables`` into ``plan.group_tables``;
+with float32 operands, for the split-bf16 route, ``build_pair_split_tables``
+into ``plan.pair_split_tables`` and ``build_group_split_tables`` into
+``plan.group_split_tables``. Each is built on the card at the plan's first
+such call, one per angle group, and kept on the plan for every later call.
 
 Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
 ``(..., A, S)``.
@@ -31,6 +31,7 @@ from pdunet_tpu_torch.geometry import ParallelGeometry, ParallelPlan, build_para
 from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     backproject_group,
     backproject_pair_group,
+    build_group_split_tables,
     build_group_tables,
     build_pair_split_tables,
     build_pair_tables,
@@ -57,26 +58,24 @@ def _pair_args(arr, grp):
 
 def _tables(plan: ParallelPlan, grp: str, x: torch.Tensor, cdt):
     """The angle group's trig tables for the tensor-core routes (CUDA), made
-    once per plan: on a plan that pairs, the pair kernels' (bf16) or their
-    split-bf16 route's (float32); else, for bf16, the per-angle kernels';
-    None where the kernels do not read them (CPU, and the per-angle float32
-    route)."""
-    pairs = plan.meta["use_pairs"]
-    if x.device.type != "cuda" or (cdt != torch.bfloat16 and not pairs):
+    once per plan: the pair kernels' on a plan that pairs, else the
+    per-angle kernels'; the bf16 route's, or the split-bf16 route's for
+    float32 operands. None on the CPU, where the plain versions make their
+    own trig."""
+    if x.device.type != "cuda":
         return None
     split = cdt != torch.bfloat16
-    store = (plan.pair_split_tables if split else plan.pair_tables) if pairs else plan.group_tables
+    if plan.meta["use_pairs"]:
+        store, build = ((plan.pair_split_tables, build_pair_split_tables) if split
+                        else (plan.pair_tables, build_pair_tables))
+        rows = tuple(getattr(plan, f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb"))
+    else:
+        store, build = ((plan.group_split_tables, build_group_split_tables) if split
+                        else (plan.group_tables, build_group_tables))
+        rows = (getattr(plan, f"pos_{grp}"), getattr(plan, f"shift_{grp}"))
     if grp not in store:
         with torch.no_grad():
-            if pairs:
-                build = build_pair_split_tables if split else build_pair_tables
-                store[grp] = build(
-                    *(getattr(plan, f"pair_{nm}_{grp}") for nm in ("pos", "sha", "shb")),
-                    plan.spec, plan.meta["S_ext"])
-            else:
-                store[grp] = build_group_tables(
-                    getattr(plan, f"pos_{grp}"), getattr(plan, f"shift_{grp}"), plan.spec,
-                    plan.meta["S_ext"])
+            store[grp] = build(*rows, plan.spec, plan.meta["S_ext"])
     return store[grp]
 
 

@@ -1,9 +1,9 @@
 """Probe: does packing re/im into one product matter on the card?
 
 Counterpart of ``scripts/pack_proto.py``. The shipped per-angle CUDA-core
-kernels (``_project_group_cc`` / ``_backproject_group_cc``, the float32
-route of ``project_group`` / ``backproject_group``) derive ĝ_re and ĝ_im
-per thread from one load of F. The packed kernels run stage 1 over one (N, 2K) operand
+kernels (``_project_group_cc`` / ``_backproject_group_cc``, the A/B baseline
+of both tensor-core routes of ``project_group`` / ``backproject_group``)
+derive ĝ_re and ĝ_im per thread from one load of F. The packed kernels run stage 1 over one (N, 2K) operand
 [T̂c | T̂s], fold stage 2 into two 2K-wide rows and run stage 3 as one
 4K-deep product (the adjoint contracts the packed 2K once). At the flagship
 plan's x group (256², 90 of 360 angles, batch 32) this checks packed
@@ -53,7 +53,7 @@ def main(argv=None):
     rows = (plan.pos_x, plan.shift_x, plan.spec, plan.Wc, plan.Ws, L, True)
 
     # "shipped": the per-angle CUDA-core kernels (like with like beside the
-    # packed ones; project_group's bf16 route now runs on the tensor cores)
+    # packed ones; both of project_group's routes now run on the tensor cores)
     def shipped_fwd(x, cdt):
         fn = project_group if x.device.type == "cpu" else _project_group_cc
         return fn(x, *rows, cdt)
