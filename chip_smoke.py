@@ -88,13 +88,29 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
  11. CUDA-event timings of the probe kernels beside their bound, plain
      version and stage-1 matmul yardstick;
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
-     JSON row, and launch counters showing it ran the pair kernels only.
+     JSON row, and launch counters showing it ran the pair kernels only;
+ 13. training: a few steps of ``training.loop.train`` for ``pdunet_parallel``
+     and ``pdunet_radial`` at full width (batch 4, bf16): finite losses,
+     finite nonzero gradient norms, every parameter moved, the launch
+     counters of the whole run (from 0 before it) and of one step after a
+     warm one (16 bf16 forward and 14 bf16 adjoint group calls, the
+     backward's included, and 2 + 2 split ones per step; no CUDA-core,
+     probe or other-geometry launch); the step's time (host clock), its
+     split (CUDA events: synthesis, forward with the loss, backward,
+     optimizer), idle share (torch.profiler) and peak memory; one f32 step
+     of a cut-down task on the card and on the CPU from the same weights
+     and images (loss ≤ 1e-5, gradient ≤ 1e-4); the golden-size runs of
+     ``tests/test_goldens.py`` (the port's own draws) against their untrained
+     eval, printed beside ``tests/goldens.json``; and at golden size, with
+     cuDNN deterministic, a run that fails after step 10 of 15 and is
+     resumed, bit for bit against one that never stopped, restored again
+     by ``infer --ckpt-dir``.
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
-builders of both routes of the pair and of the per-angle kernels),
-then the card's name and power limit, then the last line
-``{"ok": true, "device": {...}}``.
+builders of both routes of the pair and of the per-angle kernels; rows 1-4
+carry their launches per train step), then the card's name and power
+limit, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -102,6 +118,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -381,9 +398,11 @@ def split_sweep(ck, splits, call, tiles, counts, label, card):
     return out
 
 
-def profile_recon(one_recon, card, reps=3):
-    """Device time of ``reps`` recons by kernel, from torch.profiler: where
-    the time goes, and the device's idle share of the wall time."""
+def profile_recon(one_recon, card, reps=3, label="recons"):
+    """Device time of ``reps`` calls of ``one_recon`` (a recon or a train
+    step) by kernel, from torch.profiler: where the time goes, and the
+    device's idle share of the wall time. Returns {"wall_ms", "busy_ms",
+    "idle_share", "groups_ms"}, each per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -393,12 +412,15 @@ def profile_recon(one_recon, card, reps=3):
             one_recon()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a record_function range on the device's timeline (the
+    # optimizer's "Optimizer.step#Adam.step") spans kernels already counted
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler saw no device time")
-        return
+        return {}
     groups = {}
     for e in kern:
         n = e.key
@@ -408,16 +430,19 @@ def profile_recon(one_recon, card, reps=3):
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
              else "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-    print(f"[profile] {reps} recons under the profiler: wall {wall_ms:.3f} ms, device busy "
+    print(f"[profile] {reps} {label} under the profiler: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f} ({card})")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {g}: {ms / reps:.4f} ms per recon ({ms / busy_ms:.3f} of busy)")
+        print(f"[profile] {g}: {ms / reps:.4f} ms per call ({ms / busy_ms:.3f} of busy)")
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
     # the top kernels, and every projector kernel
     for i, e in enumerate(ranked):
         if i < 12 or "pair_" in e.key or "group_" in e.key:
-            print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f} ms/recon "
+            print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f} ms/call "
                   f"x{e.count // reps:<4d} {e.key[:110]}")
+    return {"wall_ms": wall_ms / reps, "busy_ms": busy_ms / reps,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "groups_ms": {g: ms / reps for g, ms in groups.items()}}
 
 
 #: the kernels of csrc/radon_pair_tc.cu and csrc/radon_pair_split.cu
@@ -1273,6 +1298,275 @@ def bench_phase(card):
     return row
 
 
+#: train-step launches per route (tensor-core bf16, split-bf16 f32) of a
+#: PD-UNet with n_iters = 4, derived from the code: the unroll runs 4 A and
+#: 4 A† (2 group calls each); the backward runs A for the vjp of each A†
+#: (4) and A† for the vjp of A in iterations 2-4 (iteration 1's A(f0) needs
+#: no gradient); make_batch runs one f32 A and one f32 direct recon
+TRAIN_STEP_LAUNCHES = {"fwd": {"tc": 16, "split": 2}, "adj": {"tc": 14, "split": 2}}
+
+
+def _route_counts(ck, fwd, adj):
+    return {"fwd": {"tc": fwd.launches_tc, "split": fwd.launches_split, "all": fwd.launches},
+            "adj": {"tc": adj.launches_tc, "split": adj.launches_split, "all": adj.launches}}
+
+
+def _other_launches(ck, pk, radial):
+    """Launches of every kernel the path must not run: the CUDA-core A/B
+    baselines, the probes, and the other geometry's projector."""
+    other = [ck._project_pair_cc, ck._backproject_pair_cc, ck._project_group_cc,
+             ck._backproject_group_cc]
+    other += ([ck.project_pair_group, ck.backproject_pair_group] if radial
+              else [ck.project_group, ck.backproject_group])
+    other += [getattr(pk, n) for n in PROBE_REPLACES]
+    return sum(fn.launches for fn in other)
+
+
+class _Crash(Exception):
+    """The simulated failure of a training run (phase 13's resume check)."""
+
+
+def train_phases(dev, card):
+    """Phase 13: training on the card. Per preset at full width (batch 4):
+    a few steps of ``train()`` (finite losses, nonzero finite gradient norms,
+    every parameter moved, launch counts of the whole run from 0), the
+    launches of one step after a warm one against TRAIN_STEP_LAUNCHES, and
+    the step's time, split, idle share and peak memory; a cut-down f32 step
+    on card and CPU from the same weights and images; the golden-size runs
+    (tests/test_goldens.py's config, the port's own draws) against their
+    untrained eval; and at golden size a crashed and resumed run against an
+    uninterrupted one (cuDNN deterministic), restored by ``infer``."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from pdunet_tpu_torch import infer
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+    from pdunet_tpu_torch.training import loop
+    from pdunet_tpu_torch.training.checkpoint import CheckpointManager
+    from pdunet_tpu_torch.training.tasks import build_task, estimate_opnorm
+
+    stats = {}
+    n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
+    # -- 13a. full-width steps of train(), both presets -----------------------
+    for name in ("pdunet_parallel", "pdunet_radial"):
+        radial = name == "pdunet_radial"
+        fwd, adj = ((ck.project_group, ck.backproject_group) if radial
+                    else (ck.project_pair_group, ck.backproject_pair_group))
+        config = get_preset(name).override({"train.log_every": 1})
+        n_iters, B = config.model.n_iters, config.train.batch_size
+        check(n_iters == 4 and B == 4, f"{name}: expected 4 iterations at batch 4")
+        n_steps = 4
+        ck.reset_launch_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = loop.train(config, steps=n_steps, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _route_counts(ck, fwd, adj)
+        n_val = -(-config.train.val_slices // B)
+        losses = [h["loss"] for h in res.history]
+        norms = [h["grad_norm"] for h in res.history]
+        print(f"[train] {name} train({n_steps} steps, batch {B}) on the card: {run_s:.2f} s "
+              f"with build_task and {n_val} val batches; losses {losses}, grad norms "
+              f"{norms}, final eval {res.final_eval}; launches {counts}")
+        check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
+              f"{name}: non-finite loss {losses}")
+        check(all(math.isfinite(v) and v > 0 for v in norms), f"{name}: grad norms {norms}")
+        trained = [p.detach().clone() for p in res.task.model.parameters()]
+        res.task.init_params(torch.Generator().manual_seed(
+            loop.derive_seed(config.train.seed, loop.INIT_STREAM)))
+        still = [n for (n, p), q in zip(res.task.model.named_parameters(), trained)
+                 if torch.equal(p.detach(), q)]
+        check(not still, f"{name}: parameters that did not move: {still[:5]}")
+        # the whole run from 0: build_task's power iteration (bf16), the
+        # steps, the validation batches' synthesis and the final eval's recon
+        want = {"fwd": {"tc": 2 * (n_power + 1) + n_steps * 16 + n_val * 2 * n_iters,
+                        "split": (n_steps + n_val) * 2},
+                "adj": {"tc": 2 * (n_power + 1) + n_steps * 14 + n_val * 2 * n_iters,
+                        "split": (n_steps + n_val) * 2}}
+        for op in ("fwd", "adj"):
+            check({k: counts[op][k] for k in ("tc", "split")} == want[op]
+                  and counts[op]["all"] == sum(want[op].values()),
+                  f"{name} train(): {op} launches {counts[op]}, expected {want[op]}")
+        check(_other_launches(ck, pk, radial) == 0,
+              f"{name}: a CUDA-core, probe or other-geometry kernel ran in train()")
+
+        # one step's launches, after a warm step
+        task = res.task
+        state = loop.build_state(task, n_steps=100)
+        step = loop.make_train_step(task)
+        data = torch.Generator(device=dev)
+        step(state, data.manual_seed(0))
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        pk.reset_launch_counts()
+        n_counted = 3
+        for i in range(n_counted):
+            step(state, data.manual_seed(1 + i))
+        torch.cuda.synchronize()
+        counts = _route_counts(ck, fwd, adj)
+        per_step = {op: {k: counts[op][k] / n_counted for k in ("tc", "split")}
+                    for op in ("fwd", "adj")}
+        print(f"[train] {name} launches per train step (after a warm one; fwd = "
+              f"{fwd.__name__}, adj = {adj.__name__}): {per_step}, expected "
+              f"{TRAIN_STEP_LAUNCHES}")
+        check(per_step == TRAIN_STEP_LAUNCHES, f"{name}: per-step launches {per_step}")
+        check(ck.build_pair_tables.launches + ck.build_group_tables.launches
+              + ck.build_pair_split_tables.launches + ck.build_group_split_tables.launches == 0,
+              f"{name}: trig tables rebuilt in a step")
+        check(_other_launches(ck, pk, radial) == 0,
+              f"{name}: a CUDA-core, probe or other-geometry kernel ran in a step")
+
+        # timings: host clock over steps ending in a synchronize, the split
+        # between CUDA events, the profiler's idle share, peak memory
+        reps = 10
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            step(state, data.manual_seed(10 + i))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / reps * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        split = {}
+        for i in range(5):
+            marks = []
+            step(state, data.manual_seed(20 + i), marks)
+            for k, v in loop.split_ms(marks).items():
+                split[k] = split.get(k, 0.0) + v / 5
+        prof = profile_recon(lambda: step(state, data.manual_seed(30)), card,
+                             label="train steps")
+        print(f"[time] {name} train step at batch {B}: {step_ms:.3f} ms ({B / step_ms * 1e3:.2f} "
+              f"slices/s), split by CUDA events {({k: round(v, 4) for k, v in split.items()})} "
+              f"ms, peak memory {peak_gb:.3f} GiB ({base_mem / 2**30:.3f} GiB resident before "
+              f"the steps) ({card})")
+        stats[name] = {"train_steps": n_steps, "losses": losses, "grad_norms": norms,
+                       "launches_per_step": per_step, "step_ms": step_ms,
+                       "split_ms": split, "peak_gb": peak_gb, "profile": prof}
+        del res, task, state, step
+        torch.cuda.empty_cache()
+
+    # -- 13b. a cut-down f32 step, card against CPU ---------------------------
+    small = {"geometry.image_size": 32, "geometry.n_angles": 96, "model.base_features": 8,
+             "model.n_iters": 2, "model.use_bfloat16": False, "train.batch_size": 2}
+    # one power-iteration start vector for both devices (their generators differ)
+    x0 = torch.randn(32, 32, generator=torch.Generator().manual_seed(0)).numpy()
+    for name in ("pdunet_parallel", "pdunet_radial"):
+        config = get_preset(name).override(small)
+        cpu_task = build_task(config, device="cpu", opnorm_x0=x0)
+        truth = "image_c" if name == "pdunet_radial" else "image"
+        with torch.no_grad():
+            images = cpu_task.make_batch(torch.Generator().manual_seed(7))[truth]
+        out = []
+        for d in (dev, torch.device("cpu")):
+            task = cpu_task if d.type == "cpu" else build_task(config, device=d, opnorm_x0=x0)
+            state = loop.build_state(task, init_seed=loop.derive_seed(0, loop.INIT_STREAM))
+            m = loop.make_train_step(task, from_images=True)(state, images.to(d))
+            out.append((float(m["loss"]), float(m["grad_norm"]),
+                        torch.cat([p.grad.flatten().cpu() for p in task.model.parameters()])))
+        (l0, n0, g0), (l1, n1, g1) = out
+        errs = {"loss": abs(l0 - l1) / abs(l1), "grad_norm": abs(n0 - n1) / n1,
+                "grad": rel(g0, g1)}
+        print(f"[check] {name} f32 train step (cut-down), card vs CPU: {errs} (tol loss "
+              f"1e-5, grad_norm and whole-model gradient 1e-4)")
+        check(errs["loss"] < 1e-5 and errs["grad_norm"] < 1e-4 and errs["grad"] < 1e-4,
+              f"{name}: card step disagrees with the CPU")
+        stats[name]["f32_step_card_vs_cpu"] = errs
+
+    # -- 13c. golden-size runs, and 13d. resume, both presets -------------------
+    golden = json.loads((REPO / "tests" / "goldens.json").read_text())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    prev_det = torch.backends.cudnn.deterministic
+    try:
+        for name in ("pdunet_parallel", "pdunet_radial"):
+            over = {"geometry.image_size": 32, "geometry.n_angles": 40,
+                    "geometry.sparsity": 4, "model.base_features": 8, "model.depth": 1,
+                    "model.n_iters": 2, "train.batch_size": 2, "train.learning_rate": 2e-3,
+                    "train.warmup_steps": 10, "train.steps": 100, "train.log_every": 50,
+                    "train.eval_every": 1000, "train.seed": 0, "train.n_ellipses": 4}
+            if name == "pdunet_radial":
+                over["geometry.samples_per_spoke"] = 48
+            config = get_preset(name).override(over)
+            untrained = loop.train(config, steps=0, device=dev, verbose=False).final_eval
+            t0 = time.perf_counter()
+            res = loop.train(config, device=dev, verbose=False)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            fin = res.final_eval
+            print(f"[train] {name} golden-size run (100 steps, the port's draws): final eval "
+                  f"PSNR {fin['psnr']:.3f} dB SSIM {fin['ssim']:.4f}, untrained "
+                  f"{untrained['psnr']:.3f} / {untrained['ssim']:.4f}; tests/goldens.json "
+                  f"(JAX's draws, not gated) {golden[name]}; {run_s:.2f} s")
+            check(fin["psnr"] > untrained["psnr"] and fin["ssim"] > untrained["ssim"],
+                  f"{name}: training did not improve the eval ({untrained} -> {fin})")
+            stats[name]["golden"] = {"final": fin, "untrained": untrained,
+                                     "goldens_json": golden[name], "run_s": run_s}
+
+            # a run that dies after step 10 of 15, resumed, against one that
+            # never stopped: bitwise, with cuDNN's deterministic algorithms
+            torch.backends.cudnn.deterministic = True
+            ck_over = {"train.steps": 15, "train.ckpt_every": 5}
+            dirs = {k: os.path.join(tmp, f"{name}_{k}") for k in ("whole", "resumed")}
+            whole = loop.train(config.override({**ck_over, "train.ckpt_dir": dirs["whole"]}),
+                               device=dev, verbose=False)
+            cfg_r = config.override({**ck_over, "train.ckpt_dir": dirs["resumed"]})
+            beat, beats = loop.watchdog.beat, []
+
+            def crash_after_10():
+                beats.append(1)
+                if len(beats) == 11:
+                    raise _Crash("simulated crash in step 11")
+
+            loop.watchdog.beat = crash_after_10
+            try:
+                loop.train(cfg_r, device=dev, verbose=False)
+                check(False, "the simulated crash did not happen")
+            except _Crash:
+                pass
+            finally:
+                loop.watchdog.beat = beat
+            check(CheckpointManager(dirs["resumed"]).latest_step() == 10,
+                  "no checkpoint at step 10 after the crash")
+            resumed = loop.train(cfg_r, device=dev, verbose=False)
+            same = all(torch.equal(a, b) for a, b in zip(resumed.state.model.parameters(),
+                                                          whole.state.model.parameters()))
+            diff = rel(torch.cat([p.detach().flatten() for p in resumed.state.model.parameters()]),
+                       torch.cat([p.detach().flatten() for p in whole.state.model.parameters()]))
+            print(f"[check] {name} resumed at step 10 of 15 vs uninterrupted (cuDNN "
+                  f"deterministic): bitwise {same}, rel {diff:.3e}")
+            check(same and resumed.state.step == 15, f"{name}: the resumed run differs")
+            torch.backends.cudnn.deterministic = prev_det
+            # infer restores it
+            flags = [a for k, v in over.items() if not k.startswith("train.")
+                     for a in ("--set", f"{k}={v}")]
+            js = os.path.join(tmp, f"{name}_infer.json")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = infer.main(["--preset", name, "--device", str(dev),
+                                 "--ckpt-dir", dirs["resumed"], "--ckpt",
+                                 "latest", "--batch", "2", "--n-slices", "8",
+                                 "--json-out", js, *flags])
+            table = json.loads(pathlib.Path(js).read_text())
+            print(f"[check] {name} infer --ckpt-dir (resumed run): {buf.getvalue().strip()}")
+            check(rc == 0 and table["ckpt_step"] == 15 and math.isfinite(table["psnr_mean"]),
+                  f"{name}: infer did not restore the checkpoint: {table}")
+            state = loop.build_state(build_task(config, device=dev))
+            CheckpointManager(dirs["resumed"]).restore(state)
+            check(all(torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                                         whole.state.model.parameters())),
+                  f"{name}: the restored weights differ from the trained ones")
+            stats[name]["resume_bitwise"] = same
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        shutil.rmtree(tmp, ignore_errors=True)
+    return stats
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1661,6 +1955,15 @@ def main():
             e["hgmma_f32"] = hgmma["group_split_fwd" if fwd_op else "group_split_adj"]
     probe_entries = probe_phases(dev, card, gen)
     bench_row = bench_phase(card)
+    train_stats = train_phases(dev, card)
+    for e in entries + radial_entries:
+        preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
+                  "pdunet_parallel", "project_group": "pdunet_radial",
+                  "backproject_group": "pdunet_radial"}.get(e["name"])
+        if preset:
+            op = "fwd" if e["name"].startswith("project") else "adj"
+            e["launches_per_train_step"] = {
+                "preset": preset, **train_stats[preset]["launches_per_step"][op]}
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1674,7 +1977,7 @@ def main():
                       "pair_split_call_profile_ms": split_shares,
                       "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
-                      "build_s": build_s, "card": card}))
+                      "train": train_stats, "build_s": build_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -9,23 +9,29 @@ sparse). The line carries no ``vs_baseline``: the JAX harness divides by
 about an H100.
 
     python -m pdunet_tpu_torch.bench                  # headline, on the card
-    python -m pdunet_tpu_torch.bench --all            # + roofline, A / A† / FBP rows
+    python -m pdunet_tpu_torch.bench --all            # + roofline, A / A† / FBP, train rows
+    python -m pdunet_tpu_torch.bench --train-scan     # + the train step's batch ladder
     python -m pdunet_tpu_torch.bench --preset-recon pdunet_radial --batch 128
     python -m pdunet_tpu_torch.bench --device cpu --batch 2 --image-size 32 --n-iters 2
 
 ``--all`` prints the secondary rows to stderr and writes them to
-``bench_details.json``. Ported presets: ``pdunet_parallel`` and
-``pdunet_radial``; the others, the train rows of ``--all``, ``--train-scan``
-and ``--unet-scan`` wait for later slices (ROADMAP.md) and raise
-``NotImplementedError``. Rows carry no test PSNR/SSIM: the JAX harness reads
-those from artifacts of checkpoints trained on a TPU, which the port cannot
-load until slice A2.
+``bench_details.json``: the roofline, the A / A† / FBP rows, and the train
+step of the headline config at ``min(batch, 32)`` (seconds per step, its
+split into synthesis, forward with the loss, backward and optimizer, and
+peak memory). ``--train-scan`` adds the train step's batch ladder: that
+batch without remat, then 2×, 4× and 8× with remat, stopping at the first
+batch that runs out of card memory. Ported presets: ``pdunet_parallel`` and
+``pdunet_radial``; the others and ``--unet-scan`` wait for later slices
+(ROADMAP.md) and raise ``NotImplementedError``. Rows carry no test
+PSNR/SSIM: the JAX harness reads those from artifacts of checkpoints
+trained on a TPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import sys
@@ -34,6 +40,12 @@ import time
 import torch
 
 from pdunet_tpu_torch.configs import get_preset
+from pdunet_tpu_torch.training.loop import (
+    TrainState,
+    build_optimizer,
+    make_train_step,
+    split_ms,
+)
 from pdunet_tpu_torch.training.tasks import build_geometries, build_task
 from pdunet_tpu_torch.utils import watchdog
 
@@ -61,21 +73,21 @@ _MIN_WINDOW_S = 0.1
 _CARRY_KEY = {"pdunet": "f0"}
 
 
-def _window(fn, x0, aux, iters: int) -> float:
-    """Seconds for ``iters`` back-to-back calls: CUDA events on the card,
-    the host clock on the CPU."""
-    if x0.device.type == "cuda":
+def _window(call, device, iters: int) -> float:
+    """Seconds for ``iters`` back-to-back ``call()``: CUDA events on the
+    card, the host clock on the CPU."""
+    if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            fn(x0, *aux)
+            call()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3
     t0 = time.perf_counter()
     for _ in range(iters):
-        fn(x0, *aux)
+        call()
     return time.perf_counter() - t0
 
 
@@ -97,13 +109,13 @@ def timeit(fn, x0, iters: int = 10, aux=()) -> float:
             torch.cuda.synchronize(x0.device)
         watchdog.beat()
         while True:
-            best = _window(fn, x0, aux, iters)
+            best = _window(lambda: fn(x0, *aux), x0.device, iters)
             watchdog.beat()
             if best >= _MIN_WINDOW_S or iters >= 10000:
                 break
             iters *= 8
         for _ in range(2):
-            best = min(best, _window(fn, x0, aux, iters))
+            best = min(best, _window(lambda: fn(x0, *aux), x0.device, iters))
     return best / iters
 
 
@@ -158,6 +170,75 @@ def bench_preset_recon(name: str, batch_size: int, stem: int | None = None,
         row.update(image_size=g.image_size, n_angles=g.n_angles)
         row["mpixels_per_sec"] = round(batch_size / dt * g.image_size ** 2 / 1e6, 2)
     return row
+
+
+def time_train_steps(step, state, device, iters: int = 5) -> tuple:
+    """(seconds per train step, its split) of ``step(state, generator)``.
+
+    Two warm steps, then the best of three windows of ``iters`` back-to-back
+    steps, each drawing its own batch (timed as :func:`timeit`'s windows).
+    The split is the mean over ``iters`` more steps of the per-phase times
+    between the step's CUDA events (``make_train_step``'s marks):
+    synthesis, forward with the loss, backward, optimizer. A phase whose
+    host work outlasts the device's queue reads as the host's time."""
+    device = torch.device(device)
+    seeds = itertools.count()
+
+    def one(marks=None):
+        step(state, torch.Generator(device=device).manual_seed(next(seeds)), marks)
+
+    for _ in range(2):
+        one()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    best = float("inf")
+    for _ in range(3):
+        watchdog.beat()
+        best = min(best, _window(one, device, iters))
+    sums = {}
+    for _ in range(iters):
+        marks = []
+        one(marks)
+        for k, v in split_ms(marks).items():
+            sums[k] = sums.get(k, 0.0) + v / iters
+    return best / iters, {f"{k}_sec": round(v / 1e3, 6) for k, v in sums.items()}
+
+
+def bench_train(config, batch: int, remat: bool = False, device="cuda") -> dict:
+    """Train-step row of ``config`` at ``batch``: Adam at a constant 1e-3
+    (as the JAX harness), random weights from seed 0."""
+    config = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, remat=remat),
+        train=dataclasses.replace(config.train, batch_size=batch))
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    task = build_task(config, device=device)
+    state = TrainState(task.model, build_optimizer(task.model), lambda i: 1e-3)
+    dt, split = time_train_steps(make_train_step(task), state, device)
+    return {"batch": batch, "remat": remat, "step_sec": round(dt, 6),
+            "slices_per_sec": round(batch / dt, 2),
+            "split": split,
+            "peak_mem_gib": (round(torch.cuda.max_memory_allocated(device) / 2**30, 3)
+                            if on_card else None)}
+
+
+def train_scan(config, batch: int, device="cuda") -> list:
+    """The train step's memory/speed ladder (the JAX harness's 32 / 64 /
+    128 / 256 at the full batch): ``batch`` without remat, then 2×, 4×, 8×
+    with remat. Running out of card memory ends the ladder with an error
+    row; any other failure raises."""
+    rows = []
+    for b, remat in ((batch, False), (2 * batch, True), (4 * batch, True), (8 * batch, True)):
+        try:
+            row = bench_train(config, b, remat=remat, device=device)
+        except torch.cuda.OutOfMemoryError:
+            rows.append({"batch": b, "remat": remat, "error": "OutOfMemoryError"})
+            torch.cuda.empty_cache()
+            break
+        rows.append(row)
+        print(json.dumps(row), file=sys.stderr)
+    return rows
 
 
 def projector_flops_per_apply(meta: dict, K: int, S: int) -> int:
@@ -223,7 +304,8 @@ def parse_args(argv=None):
     p.add_argument("--matrix", action="store_true",
                    help="with --all: bench every ported preset end-to-end")
     p.add_argument("--train-scan", action="store_true",
-                   help="train-step batch scaling (not ported: ROADMAP slice A2)")
+                   help="with --all: the train step's batch ladder (remat above the "
+                        "first rung)")
     p.add_argument("--dtype", choices=["preset", "f32", "bf16"], default="preset",
                    help="network compute dtype (default: the preset's, bf16)")
     p.add_argument("--scale-scan", action="store_true",
@@ -236,7 +318,7 @@ def parse_args(argv=None):
                    help="with --preset-recon: override the undersampling factor")
     p.add_argument("--unet-scan", action="store_true",
                    help="UNet upsample/stem variants (not ported: needs "
-                        "upsample='shuffle' and ROADMAP slice A2)")
+                        "upsample='shuffle', ROADMAP item 11)")
     args = p.parse_args(argv)
     args.all = args.all or args.matrix or args.train_scan or args.scale_scan
     return args
@@ -284,6 +366,19 @@ def _secondary(args, config, task, batch, dt, result) -> dict:
                        "error": f"{type(e).__name__}: {e}"}
             details["scale_scan"].append(row)
             print(json.dumps(row), file=sys.stderr)
+    train_batch = min(args.batch, 32)
+    details["config"]["train_batch"] = train_batch
+    train_row = bench_train(config, train_batch, device=args.device)
+    details["train_step_sec"] = train_row["step_sec"]
+    details["train_slices_per_sec"] = train_row["slices_per_sec"]
+    details["train_split"] = dict(
+        train_row["split"], batch=train_batch,
+        note="synthesis: make_batch (f32 A + direct recon); forward: unroll + loss; "
+             "backward: loss.backward(); optimizer: clip + Adam; device time between "
+             "CUDA events")
+    details["train_peak_mem_gib"] = train_row["peak_mem_gib"]
+    if args.train_scan:
+        details["train_scan"] = train_scan(config, train_batch, device=args.device)
     if args.matrix:
         details["presets"] = []
         for name, b in MATRIX_BATCH.items():
@@ -295,12 +390,9 @@ def _secondary(args, config, task, batch, dt, result) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.train_scan:
-        raise NotImplementedError("--train-scan needs training, which is not ported yet "
-                                  "(ROADMAP.md slice A2, item 10's train rows)")
     if args.unet_scan:
-        raise NotImplementedError("--unet-scan needs upsample='shuffle' and the train "
-                                  "rows, which are not ported yet (ROADMAP.md slice A2)")
+        raise NotImplementedError("--unet-scan needs upsample='shuffle', which is not "
+                                  "ported yet (ROADMAP.md item 11)")
     watchdog.start(float(os.environ.get("PDUNET_WATCHDOG_SECS", 0)), label="bench")
 
     if args.preset_recon:

@@ -2,15 +2,17 @@
 synthetic-data path of ``infer.py``).
 
 Synthesises noiseless ellipse-phantom test batches on the device, runs the
-task's reconstruction and reports per-slice PSNR/SSIM mean ± std.
+task's reconstruction and reports per-slice PSNR/SSIM mean ± std, with the
+weights of a checkpoint written by ``python -m pdunet_tpu_torch.train``
+(``--ckpt-dir``; ``--ckpt latest``, ``best`` or a step), or random weights
+from seed 0 without one.
 
 Usage:
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --n-slices 32
   python -m pdunet_tpu_torch.infer --preset pdunet_radial --n-slices 32
+  python -m pdunet_tpu_torch.infer --preset pdunet_parallel --ckpt-dir runs/pd --ckpt best
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --device cpu \\
       --set geometry.image_size=32 --json-out metrics.json
-
-Weights are randomly initialised (no checkpoint loading yet).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import sys
 
@@ -26,6 +29,8 @@ import torch
 
 from pdunet_tpu_torch.configs import ExperimentConfig, get_preset
 from pdunet_tpu_torch.ops.metrics import psnr, ssim
+from pdunet_tpu_torch.training.checkpoint import CheckpointManager
+from pdunet_tpu_torch.training.loop import build_state
 from pdunet_tpu_torch.training.tasks import build_task
 
 
@@ -34,6 +39,9 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", required=True)
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
+    p.add_argument("--ckpt-dir", default=None, help="checkpoint to evaluate")
+    p.add_argument("--ckpt", default="latest",
+                   help="latest | best | <step> (with --ckpt-dir)")
     p.add_argument("--n-slices", type=int, default=64, help="synthetic test-set size")
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--seed", type=int, default=1234)
@@ -59,8 +67,21 @@ def main(argv=None):
     device = torch.device(args.device)
     task = build_task(config, device=device)
     B = config.train.batch_size
-    print("[infer] WARNING: no checkpoint loading yet; evaluating "
-          "randomly-initialized params")
+    ckpt_step = None
+    if args.ckpt_dir:
+        ckpt_dir, step = args.ckpt_dir, None
+        if args.ckpt == "best":
+            # the best validation weights live in their own single-slot directory
+            ckpt_dir = os.path.join(args.ckpt_dir, "best")
+        elif args.ckpt != "latest":
+            step = int(args.ckpt)
+        restored = CheckpointManager(ckpt_dir).restore(build_state(task), step=step)
+        if restored is None:
+            raise SystemExit(f"no {args.ckpt} checkpoint found in {ckpt_dir}")
+        ckpt_step = restored.step
+        print(f"[infer] restored step {ckpt_step} ({args.ckpt}) from {ckpt_dir}")
+    else:
+        print("[infer] WARNING: no --ckpt-dir; evaluating randomly-initialized params")
 
     all_psnr, all_ssim = [], []
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -82,6 +103,7 @@ def main(argv=None):
         "ssim_mean": float(np.mean(all_ssim)),
         "ssim_std": float(np.std(all_ssim)),
         "device": str(device),
+        "ckpt_step": ckpt_step,
     }
     print(f"[infer] {config.name}: "
           f"PSNR {table['psnr_mean']:.2f} ± {table['psnr_std']:.2f} dB  "

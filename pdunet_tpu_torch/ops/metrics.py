@@ -12,11 +12,15 @@ import torch.nn.functional as F
 
 from pdunet_tpu_torch.utils.precision import exact_f32_conv
 
-__all__ = ["psnr", "ssim", "mse"]
+__all__ = ["mse", "rmse", "psnr", "ssim"]
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2, dim=(-2, -1))
+
+
+def rmse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(mse(pred, target))
 
 
 def _peak_to_peak(t: torch.Tensor) -> torch.Tensor:

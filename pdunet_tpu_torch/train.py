@@ -1,0 +1,136 @@
+"""Train entry point of the PyTorch port (port of ``train.py``).
+
+Usage:
+  python -m pdunet_tpu_torch.train --preset pdunet_parallel --steps 2000
+  python -m pdunet_tpu_torch.train --preset pdunet_radial --ckpt-dir runs/rad --resume auto
+  python -m pdunet_tpu_torch.train --preset pdunet_parallel --device cpu --steps 20 \\
+      --set geometry.image_size=32 --set model.base_features=8
+
+Ported presets: ``pdunet_parallel`` and ``pdunet_radial``; any config field
+can be overridden with ``--set section.field=value``. Training runs on the
+card (``--device cuda``) unless ``--device cpu`` is asked for. File-backed
+training (``--data``), the device meshes (``--devices``,
+``--angle-devices``) and TensorBoard (``--tb-dir``) are not ported yet and
+raise; ``--checkify`` and ``--dump-hlo`` are XLA tools with no counterpart
+here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import pathlib
+import sys
+
+import torch
+
+from pdunet_tpu_torch.configs import ExperimentConfig, get_preset
+
+#: flags of the reference kept for parity that the port does not run yet →
+#: the ROADMAP.md item that ports them
+_UNPORTED = {
+    "data": "item 7 (file-backed data)",
+    "split": "item 7 (file-backed data)",
+    "devices": "item 16 (data-parallel mesh)",
+    "angle_devices": "item 17 (angle-sharded operators)",
+    "tb_dir": "item 19 (TensorBoard logging)",
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--preset", help="preset name (pdunet_parallel, pdunet_radial)")
+    p.add_argument("--config", help="path to an ExperimentConfig JSON")
+    p.add_argument("--steps", type=int, default=None, help="override train.steps")
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="dotted config override, e.g. train.learning_rate=3e-4")
+    p.add_argument("--ckpt-dir", default=None, help="checkpoint directory")
+    p.add_argument("--resume", choices=["auto", "none"], default="auto",
+                   help="auto-resume from the latest checkpoint in --ckpt-dir")
+    p.add_argument("--metrics", default=None, help="JSONL metrics output path")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of steps 10-15 here")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="torch.autograd.set_detect_anomaly: fail at the op whose "
+                        "backward makes a NaN (slow)")
+    p.add_argument("--dump-config", action="store_true",
+                   help="print the resolved config JSON and exit")
+    p.add_argument("--watchdog-secs", type=float,
+                   default=float(os.environ.get("PDUNET_WATCHDOG_SECS", 0)),
+                   help="abort (exit 87) if no training step completes for this many "
+                        "seconds; the run resumes from the last checkpoint. 0 disables "
+                        "(default; env PDUNET_WATCHDOG_SECS overrides)")
+    # the reference's flags the port does not run: each raises
+    p.add_argument("--data", default=None, help="not ported (ROADMAP item 7)")
+    p.add_argument("--split", default=None, help="with --data (not ported)")
+    p.add_argument("--devices", type=int, default=None, help="not ported (ROADMAP item 16)")
+    p.add_argument("--angle-devices", type=int, default=None,
+                   help="not ported (ROADMAP item 17)")
+    p.add_argument("--tb-dir", default=None, help="not ported (ROADMAP item 19)")
+    p.add_argument("--checkify", action="store_true",
+                   help="an XLA tool; no counterpart here (see --debug-nans)")
+    p.add_argument("--dump-hlo", default=None, metavar="DIR",
+                   help="an XLA tool; no counterpart here")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args):
+    for name, item in _UNPORTED.items():
+        if getattr(args, name) is not None:
+            flag = "--" + name.replace("_", "-")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
+    for flag, on in (("--checkify", args.checkify), ("--dump-hlo", args.dump_hlo)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} drives an XLA tool, which has no counterpart in the PyTorch "
+                f"port (--debug-nans runs torch's anomaly detection)")
+
+
+def resolve_config(args) -> ExperimentConfig:
+    if args.config:
+        config = ExperimentConfig.from_json(pathlib.Path(args.config).read_text())
+    elif args.preset:
+        config = get_preset(args.preset)
+    else:
+        raise SystemExit("need --preset or --config (try --preset pdunet_parallel)")
+    overrides = dict(item.partition("=")[::2] for item in args.set)
+    if overrides:
+        config = config.override(overrides)
+    if args.ckpt_dir is not None:
+        config = dataclasses.replace(
+            config, train=dataclasses.replace(config.train, ckpt_dir=args.ckpt_dir))
+    if args.resume == "none" and config.train.ckpt_dir:
+        # a fresh run: refuse to clobber an existing run directory
+        ckpt = pathlib.Path(config.train.ckpt_dir)
+        if ckpt.exists() and any(ckpt.iterdir()):
+            raise SystemExit(
+                f"--resume none but {ckpt} is non-empty; remove it or use --resume auto")
+    return config
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+    config = resolve_config(args)
+    if args.dump_config:
+        print(config.to_json())
+        return 0
+    if args.watchdog_secs > 0:
+        from pdunet_tpu_torch.utils import watchdog
+
+        watchdog.start(args.watchdog_secs, label=f"train:{config.name}")
+
+    from pdunet_tpu_torch.training.loop import train
+
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        result = train(config, steps=args.steps, metrics_path=args.metrics, verbose=True,
+                       profile_dir=args.profile_dir, device=args.device)
+    print(f"[done] final eval: {result.final_eval}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,6 +8,9 @@ reconstruction function:
                     ramp-filter FBP (parallel) or DCF adjoint (radial)
     recon_fn        PD-UNet unroll with A/σ and A†/σ in the preset's dtype
                     (radial: the magnitude of the complex output)
+    loss_fn         ``train.loss`` of the prediction against the ground
+                    truth (radial: of the complex prediction against
+                    ``image_c``, not of its magnitude)
 
 Measurement synthesis and f0 run in float32 even when the unroll runs in
 bfloat16: the simulated measurement plays the role of physics, and
@@ -28,6 +31,7 @@ from pdunet_tpu_torch.configs import ExperimentConfig, GeometryConfig
 from pdunet_tpu_torch.data.synth import random_phantom_batch
 from pdunet_tpu_torch.geometry import ParallelGeometry, RadialGeometry
 from pdunet_tpu_torch.models.primal_dual import UnrolledPrimalDual, make_pdunet
+from pdunet_tpu_torch.ops.losses import LOSSES
 from pdunet_tpu_torch.ops.nufft import make_radial_ops
 from pdunet_tpu_torch.ops.radon.parallel import make_parallel_ops
 
@@ -41,6 +45,8 @@ class Task(NamedTuple):
     init_params: Callable[[torch.Generator], UnrolledPrimalDual]
     #: generator → {"image", "sino", "f0"} (radial adds "image_c")
     make_batch: Callable[[torch.Generator], dict]
+    #: (model, batch) → (scalar loss, aux dict); aux is {} for both tasks
+    loss_fn: Callable[[UnrolledPrimalDual, dict], tuple]
     #: (model, batch) → reconstruction (B, N, N), real
     recon_fn: Callable[[UnrolledPrimalDual, dict], torch.Tensor]
     config: ExperimentConfig
@@ -127,6 +133,7 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
         raise NotImplementedError("k-space noise (kspace_snr_db > 0) is not ported yet")
     if mc.upsample != "convtranspose":
         raise NotImplementedError(f"upsample={mc.upsample!r} is not ported yet")
+    loss = LOSSES[tc.loss]
     device = torch.device(device)
     dense_geom, sparse_geom = build_geometries(gc)
     del dense_geom  # the pdunet tasks measure only the sparse scan
@@ -149,7 +156,7 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
         return make_pdunet(A=A_n, At=At_n, n_iters=mc.n_iters,
                            base_features=mc.base_features, depth=mc.depth,
                            stem=mc.stem, complex_ops=is_complex, dtype=dtype,
-                           generator=generator, device="cpu").to(device)
+                           generator=generator, device="cpu", remat=mc.remat).to(device)
 
     model = new_model(torch.Generator().manual_seed(0))
 
@@ -176,9 +183,15 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
                 1j * _phase_field(generator, B, N, device))
             return dict(batch_from_images(img_c), image=mag)
 
-        def recon_fn(model, batch):
+        def predict_c(model, batch):
             # measurements scaled like A_n so the dual net sees O(1) inputs
-            return model(batch["sino"] / sigma, batch["f0"]).abs()
+            return model(batch["sino"] / sigma, batch["f0"])
+
+        def recon_fn(model, batch):
+            return predict_c(model, batch).abs()
+
+        def loss_fn(model, batch):
+            return loss(predict_c(model, batch), batch["image_c"]), {}
     else:
         def batch_from_images(img):
             g = ops_synth.A(img)
@@ -192,5 +205,8 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
         def recon_fn(model, batch):
             return model(batch["sino"] / sigma, batch["f0"])
 
-    return Task(config.name, model, init_params, make_batch, recon_fn, config,
+        def loss_fn(model, batch):
+            return loss(recon_fn(model, batch), batch["image"]), {}
+
+    return Task(config.name, model, init_params, make_batch, loss_fn, recon_fn, config,
                 N, batch_from_images, sigma)

@@ -60,6 +60,13 @@ def test_all_rows_on_cpu(tmp_path, monkeypatch):
     assert not any(k.startswith("mxu") for k in roof)
     # a CPU run states no utilisation of the card's peak
     assert roof["conv_util_vs_bf16_peak"] is None and roof["device_kind"] == "cpu"
+    # the train rows at min(batch, 32), with the step's split into phases
+    assert details["config"]["train_batch"] == 2
+    assert details["train_step_sec"] > 0 and details["train_slices_per_sec"] > 0
+    split = details["train_split"]
+    assert {"synthesis_sec", "forward_sec", "backward_sec", "optimizer_sec"} <= set(split)
+    assert all(split[k] > 0 for k in ("forward_sec", "backward_sec", "optimizer_sec"))
+    assert details["train_peak_mem_gib"] is None and "train_scan" not in details
 
 
 def test_cli_defaults_are_the_jax_harness_defaults_on_the_card():
@@ -100,7 +107,47 @@ def test_unported_presets_and_flags_raise():
         bench.bench_preset_recon("fbp_unet_parallel", 2, device="cpu")
     with pytest.raises(NotImplementedError, match="slice C"):
         bench.main(["--preset-recon", "pdunet_fan", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice A2"):
-        bench.main(_TINY + ["--train-scan"])
     with pytest.raises(NotImplementedError, match="shuffle"):
         bench.main(_TINY + ["--unet-scan"])
+
+
+_TRAIN_SMALL = {"geometry.image_size": 32, "geometry.n_angles": 96,
+                "model.base_features": 8, "model.n_iters": 2}
+
+
+def test_train_scan_ladder_on_cpu():
+    """The ladder: the train batch without remat, then 2x, 4x, 8x with it."""
+    from pdunet_tpu_torch.configs import get_preset
+
+    rows = bench.train_scan(get_preset("pdunet_parallel").override(_TRAIN_SMALL), 1,
+                            device="cpu")
+    assert [(r["batch"], r["remat"]) for r in rows] == [(1, False), (2, True), (4, True),
+                                                         (8, True)]
+    assert all(r["step_sec"] > 0 and r["slices_per_sec"] > 0 for r in rows)
+
+
+def test_train_scan_stops_at_oom_and_raises_on_other_failures(monkeypatch):
+    """Running out of card memory ends the ladder with an error row (as the
+    JAX harness); any other failure propagates."""
+    from pdunet_tpu_torch.configs import get_preset
+
+    config = get_preset("pdunet_parallel").override(_TRAIN_SMALL)
+
+    def oom_at_4(config, b, remat=False, device="cuda"):
+        if b >= 4:
+            raise torch.cuda.OutOfMemoryError("out of memory")
+        return {"batch": b, "remat": remat, "step_sec": 1.0}
+
+    monkeypatch.setattr(bench, "bench_train", oom_at_4)
+    rows = bench.train_scan(config, 1, device="cpu")
+    assert [r["batch"] for r in rows] == [1, 2, 4]
+    assert rows[-1] == {"batch": 4, "remat": True, "error": "OutOfMemoryError"}
+
+    def broken(config, b, remat=False, device="cuda"):
+        raise RuntimeError("kernel failed")
+
+    monkeypatch.setattr(bench, "bench_train", broken)
+    with pytest.raises(RuntimeError, match="kernel failed"):
+        bench.train_scan(config, 1, device="cpu")
+    with pytest.raises(RuntimeError, match="kernel failed"):
+        bench.main(_TINY + ["--all"])
