@@ -104,13 +104,32 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      eval, printed beside ``tests/goldens.json``; and at golden size, with
      cuDNN deterministic, a run that fails after step 10 of 15 and is
      resumed, bit for bit against one that never stopped, restored again
-     by ``infer --ckpt-dir``.
+     by ``infer --ckpt-dir``;
+ 14. slice B (fbp_unet_parallel, sino_unet_parallel, lpd_parallel): the
+     split pair route on sino_unet's dense 360-angle plan (P = 91 pairs per
+     group), tables bit-equal to the plain builders', both kernels against
+     their plain f32 versions at B = 8 and 128 (≤ 1e-5) and timed beside
+     the split bound, the plain version and a full-f32 matmul of stage 1's
+     shape, the f32 dot test there and the adjoint's slice-count sweep;
+     then per preset at full width: the serving path with launch counts
+     from 0 before build_task (SLICE_B_LAUNCHES: fbp 2 + 2 split per
+     synthesis and none per recon, sino 2 split forward per synthesis and 2
+     split adjoint per recon, lpd 42 + 42 bf16 in build_task and 20 + 20 per
+     recon; each route's tables built once per plan and group; no
+     CUDA-core, per-angle or probe launch), recon time and profile, a
+     cut-down f32 task on card and CPU, a few train() steps at the preset's
+     batch (finite losses, every parameter moved, whole-run counts), one
+     step's launches after a warm one (fbp 2 + 2 split, sino 4 + 2 split,
+     lpd 40 + 38 bf16 and 2 + 2 split), its time, split, idle share and
+     peak memory, and ``bench --preset-recon`` at MATRIX_BATCH with device
+     time by kind; and the three golden-size runs.
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
 builders of both routes of the pair and of the per-angle kernels; rows 1-4
-carry their launches per train step), then the card's name and power
-limit, then the last line ``{"ok": true, "device": {...}}``.
+carry their launches per train step, rows 1-2 also their launches on each
+slice-B path and their dense-plan split-route times), then the card's name
+and power limit, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1322,6 +1341,36 @@ def _other_launches(ck, pk, radial):
     return sum(fn.launches for fn in other)
 
 
+def step_timings(step, state, data, B, name, card, reps=10) -> dict:
+    """A train step's time (host clock over ``reps`` steps ending in a
+    synchronize), its split between CUDA events (synthesis, forward with
+    the loss, backward, optimizer), the profiler's idle share and by-kind
+    device time, and peak memory; the steps draw from ``data``."""
+    from pdunet_tpu_torch.training import loop
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        step(state, data.manual_seed(10 + i))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    split = {}
+    for i in range(5):
+        marks = []
+        step(state, data.manual_seed(20 + i), marks)
+        for k, v in loop.split_ms(marks).items():
+            split[k] = split.get(k, 0.0) + v / 5
+    prof = profile_recon(lambda: step(state, data.manual_seed(30)), card, label="train steps")
+    print(f"[time] {name} train step at batch {B}: {step_ms:.3f} ms ({B / step_ms * 1e3:.2f} "
+          f"slices/s), split by CUDA events {({k: round(v, 4) for k, v in split.items()})} "
+          f"ms, peak memory {peak_gb:.3f} GiB ({base_mem / 2**30:.3f} GiB resident before "
+          f"the steps) ({card})")
+    return {"step_ms": step_ms, "split_ms": split, "peak_gb": peak_gb, "profile": prof}
+
+
 class _Crash(Exception):
     """The simulated failure of a training run (phase 13's resume check)."""
 
@@ -1421,33 +1470,9 @@ def train_phases(dev, card):
         check(_other_launches(ck, pk, radial) == 0,
               f"{name}: a CUDA-core, probe or other-geometry kernel ran in a step")
 
-        # timings: host clock over steps ending in a synchronize, the split
-        # between CUDA events, the profiler's idle share, peak memory
-        reps = 10
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        for i in range(reps):
-            step(state, data.manual_seed(10 + i))
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / reps * 1e3
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        split = {}
-        for i in range(5):
-            marks = []
-            step(state, data.manual_seed(20 + i), marks)
-            for k, v in loop.split_ms(marks).items():
-                split[k] = split.get(k, 0.0) + v / 5
-        prof = profile_recon(lambda: step(state, data.manual_seed(30)), card,
-                             label="train steps")
-        print(f"[time] {name} train step at batch {B}: {step_ms:.3f} ms ({B / step_ms * 1e3:.2f} "
-              f"slices/s), split by CUDA events {({k: round(v, 4) for k, v in split.items()})} "
-              f"ms, peak memory {peak_gb:.3f} GiB ({base_mem / 2**30:.3f} GiB resident before "
-              f"the steps) ({card})")
         stats[name] = {"train_steps": n_steps, "losses": losses, "grad_norms": norms,
-                       "launches_per_step": per_step, "step_ms": step_ms,
-                       "split_ms": split, "peak_gb": peak_gb, "profile": prof}
+                       "launches_per_step": per_step,
+                       **step_timings(step, state, data, B, name, card)}
         del res, task, state, step
         torch.cuda.empty_cache()
 
@@ -1567,6 +1592,340 @@ def train_phases(dev, card):
     return stats
 
 
+#: the presets of slice B (ROADMAP.md item 11)
+SLICE_B = ("fbp_unet_parallel", "sino_unet_parallel", "lpd_parallel")
+
+#: pair-kernel group calls of each slice-B preset, derived from the code, as
+#: (forward bf16, forward split, adjoint bf16, adjoint split) per phase:
+#: "build" is build_task (lpd: the power iteration's 21 bf16 A†A, 2 groups
+#: each), "synth" one make_batch or batch_from_images (f32 sparse A + FBP;
+#: sino: the f32 dense A only), "recon" one recon_fn (fbp: none; sino: the
+#: f32 dense FBP; lpd: 10 bf16 A and A†), "step" one train step after a warm
+#: one (synth + the loss's forward + its backward: sino's FBP in the image
+#: loss and its vjp, an A; lpd's unroll and its vjps, vjp(A†) = A in all 10
+#: iterations and vjp(A) = A† in iterations 2-10, iteration 1's A(f0)
+#: needing no gradient)
+SLICE_B_LAUNCHES = {
+    "fbp_unet_parallel": {"build": (0, 0, 0, 0), "synth": (0, 2, 0, 2),
+                          "recon": (0, 0, 0, 0), "step": (0, 2, 0, 2)},
+    "sino_unet_parallel": {"build": (0, 0, 0, 0), "synth": (0, 2, 0, 0),
+                           "recon": (0, 0, 0, 2), "step": (0, 4, 0, 2)},
+    "lpd_parallel": {"build": (42, 0, 42, 0), "synth": (0, 2, 0, 2),
+                     "recon": (20, 0, 20, 0), "step": (40, 2, 38, 2)},
+}
+
+
+def _pair_route_counts(ck):
+    """(forward bf16, forward split, adjoint bf16, adjoint split) launches."""
+    f, a = ck.project_pair_group, ck.backproject_pair_group
+    return (f.launches_tc, f.launches_split, a.launches_tc, a.launches_split)
+
+
+def _times(n, counts):
+    return tuple(n * c_ for c_ in counts)
+
+
+def _plus(*counts):
+    return tuple(sum(c_) for c_ in zip(*counts))
+
+
+def dense_plan_phase(dev, card, gen):
+    """Phase 14a: the split-bf16 pair route on sino_unet_parallel's dense
+    plan (256², all 360 angles, P = 91 pairs per group): tables bit-equal
+    to the plain builders', both kernels against their plain f32 versions
+    at B = 8 (train) and 128 (bench), the f32 adjoint dot test, and device
+    times beside the split bound, the plain version and a full-f32
+    torch.matmul of stage 1's shape; the adjoint's slice-count sweep at B = 8."""
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon.parallel import (
+        make_parallel_ops,
+        parallel_backproject,
+        parallel_project,
+    )
+    from pdunet_tpu_torch.training.tasks import build_geometries
+
+    f32 = torch.float32
+    dense, _ = build_geometries(get_preset("sino_unet_parallel").geometry)
+    plan = make_parallel_ops(dense, dtype=f32, device=dev).plan
+    m = plan.meta
+    N, S, K, L, P = m["N"], m["S"], m["K"], m["S_ext"], m["P_x"]
+    print(f"[chip_smoke] dense plan (sino_unet_parallel): N={N} S={S} K={K} L={L} "
+          f"P_x={m['P_x']} P_y={m['P_y']} use_pairs={m['use_pairs']}")
+    check(m["use_pairs"] and m["P_x"] == m["P_y"] and 2 * (P + m["P_y"]) >= len(dense.angles),
+          "the dense plan must pair all its angles, two groups of equal size")
+    tabs = {f32: check_tables(ck.build_pair_split_tables, ck._pair_split_tables,
+                              {g: (*pair_rows(plan, g)[:3], plan.spec, L) for g in "xy"})}
+    table_mb = sum(t.numel() * t.element_size() for g in "xy" for t in tabs[f32][g]) / 1e6
+    print(f"[chip_smoke] dense plan split tables (T̂ hi/lo bf16 + φ f32), both groups: "
+          f"{table_mb:.2f} MB")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"P": P, "table_mb": table_mb}
+    for B_ in (8, 128):
+        f_ = torch.randn(B_, N, N, generator=gen, device=dev)
+        p_ = {g: torch.randn(B_, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
+        fwd_, adj_ = pair_calls(ck, plan, tabs, f_, p_)
+        kernels = {"project_pair_group": (fwd_, ck.project_pair_group, ck._project_pair_group),
+                   "backproject_pair_group": (adj_, ck.backproject_pair_group,
+                                              ck._backproject_pair_group)}
+        errs = {}
+        check_kernels({f"{k} dense B={B_}": v for k, v in kernels.items()}, errs, dtypes=(f32,))
+        cost = pair_cost(B_, N, P, K, S)
+        bound, by = split_bound_ms(cost, 4 * B_ * P * N * N * K)
+        Fm = f_.reshape(1, B_ * N, N).expand(P, B_ * N, N).contiguous()
+        Tm = torch.randn(P, N, 2 * K, generator=gen, device=dev)
+        mm = device_ms(lambda: torch.matmul(Fm, Tm), 5)
+        del Fm, Tm
+        G = ck.pair_adjoint_splits(B_, N, P, n_sms, ck._SPLIT_ADJ_COLS)
+        for op, (call, kern, plain) in kernels.items():
+            ms = sum(device_ms(lambda g=g: call(g, f32, kern), 5) for g in "xy") / 2
+            plain_ms = cuda_ms(lambda: (call("x", f32, plain), call("y", f32, plain)),
+                               iters=2, warmup=1) / 2
+            e = errs[(f"{op} dense B={B_}", "float32")]
+            out[f"{op}_b{B_}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                  "bound_by": by, "stage1_matmul_f32_ms": mm,
+                                  "max_abs_err": e[0], "rel_err": e[1],
+                                  "adjoint_slices": G if op.startswith("back") else None}
+            print(f"[time] {op} float32 (split) on the dense plan at B={B_}: {ms:.4f} ms per "
+                  f"group call, plain {plain_ms:.4f} ms, split bound {bound:.4f} ms ({by}; "
+                  f"{cost[0] / 1e9:.3f} GFLOP, {cost[1] / 1e6:.3f} MB), {bound / ms:.3f} of the "
+                  f"bound, full-f32 torch.matmul of stage 1's shape ({P} x [{B_ * N}x{N}] @ "
+                  f"[{N}x{2 * K}]) {mm:.4f} ms; adjoint slices G = {G} ({card})")
+        torch.cuda.empty_cache()
+    # the f32 dot test on the dense plan (split route): y = A x + noise
+    x = torch.randn(8, N, N, generator=gen, device=dev)
+    ax = parallel_project(plan, x)
+    y = torch.randn(ax.shape, generator=gen, device=dev)
+    y = ax + y * (ax.norm() / y.norm())
+    lhs = torch.vdot(ax.double().flatten(), y.double().flatten())
+    rhs = torch.vdot(x.double().flatten(), parallel_backproject(plan, y).double().flatten())
+    out["dot_rel"] = float(abs(lhs - rhs) / abs(lhs))
+    print(f"[check] float32 adjoint <Ax,y> vs <x,A^T y> on the dense plan (split route, B=8): "
+          f"rel {out['dot_rel']:.3e} (tol 1e-5)")
+    check(out["dot_rel"] < 1e-5, f"dense-plan dot test failed: {out['dot_rel']}")
+    # does the one-wave slice rule still pick well at 4x the pairs?
+    p8 = {g: torch.randn(8, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"}
+    _, adj8 = pair_calls(ck, plan, tabs, x, p8)
+    out["adjoint_split_sweep_b8"] = split_sweep(
+        ck, "pair_adjoint_splits", lambda g: adj8(g, f32, ck.backproject_pair_group),
+        8 * -(-N // 128) * -(-N // 128), (1, 2, 4, 8, 16),
+        "backproject_pair_group float32 (split) dense B=8", card)
+    return out
+
+
+def slice_b_phases(dev, card):
+    """Phase 14b-e: fbp_unet_parallel, sino_unet_parallel and lpd_parallel
+    at full width. Per preset: the serving path (build_task → make_batch →
+    batch_from_images → recon_fn → PSNR/SSIM, random weights from a seed)
+    with its launch counts from 0 against SLICE_B_LAUNCHES and its recon
+    time and profile at the preset's batch; a cut-down f32 task on card and
+    CPU; a few train() steps (finite losses, every parameter moved, whole-run
+    counts), one step's launches after a warm one, its time, split, idle
+    share and peak memory; bench --preset-recon at MATRIX_BATCH with device
+    time by kind; then the golden-size runs beside tests/goldens.json."""
+    import io
+
+    import numpy as np
+
+    from pdunet_tpu_torch import bench
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.data.synth import random_phantom_batch
+    from pdunet_tpu_torch.ops.metrics import psnr, ssim
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+    from pdunet_tpu_torch.training import loop
+    from pdunet_tpu_torch.training.tasks import build_task, estimate_opnorm
+
+    n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
+    check(2 * (n_power + 1) == SLICE_B_LAUNCHES["lpd_parallel"]["build"][0],
+          "SLICE_B_LAUNCHES assumes a 20-step power iteration")
+    stats = {}
+    for name in SLICE_B:
+        config = get_preset(name)
+        want = SLICE_B_LAUNCHES[name]
+        B = config.train.batch_size
+        lpd = name == "lpd_parallel"
+        st = stats[name] = {"batch": B}
+
+        # -- 14b. serving at full width, counts from 0 before build_task -------
+        ck.reset_launch_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        task = build_task(config, device=dev)
+        torch.cuda.synchronize()
+        at_build = _pair_route_counts(ck)
+        print(f"[chip_smoke] build_task({name}) on {dev}: {time.perf_counter() - t0:.2f} s, "
+              f"sigma {task.sigma}, launches {at_build}")
+        check(at_build == want["build"], f"{name}: build_task launches {at_build}, "
+              f"expected {want['build']}")
+        check((task.sigma is not None) == lpd, f"{name}: sigma {task.sigma}")
+        task.init_params(torch.Generator().manual_seed(0))
+        task.model.eval()
+        n_batches = 2
+        data_gen = torch.Generator(device=dev).manual_seed(1234)
+        with torch.inference_mode():
+            for i in range(n_batches):
+                clean = task.make_batch(data_gen)
+                batch = task.batch_from_images(clean["image"])
+                recon = task.recon_fn(task.model, batch)
+                ps, ss = psnr(recon, batch["image"]), ssim(recon, batch["image"])
+                N = config.geometry.image_size
+                check(recon.shape == (B, N, N) and recon.dtype == torch.float32
+                      and bool(torch.isfinite(recon).all()), f"{name}: recon {recon.shape}")
+                check(bool(torch.isfinite(ps).all() and torch.isfinite(ss).all()),
+                      f"{name}: non-finite metrics")
+                print(f"[recon] {name} batch {i}: PSNR {[round(v, 3) for v in ps.tolist()]} "
+                      f"SSIM {[round(v, 4) for v in ss.tolist()]}")
+        torch.cuda.synchronize()
+        served = _pair_route_counts(ck)
+        expect = _plus(want["build"], _times(n_batches, _plus(want["synth"], want["synth"],
+                                                              want["recon"])))
+        print(f"[chip_smoke] {name} serving launches (fwd bf16, fwd split, adj bf16, adj "
+              f"split) after {n_batches} batches: {served}, expected {expect}; tables built "
+              f"bf16 {ck.build_pair_tables.launches}, split {ck.build_pair_split_tables.launches}")
+        check(served == expect, f"{name}: serving launches {served}, expected {expect}")
+        check(ck.build_pair_tables.launches == (2 if lpd else 0)
+              and ck.build_pair_split_tables.launches == 2,
+              f"{name}: trig tables not built once per plan and group")
+        check(_other_launches(ck, pk, radial=False) == 0,
+              f"{name}: a CUDA-core, per-angle or probe kernel ran on the serving path")
+        st["serve_launches"] = served
+
+        def one_recon():
+            with torch.inference_mode():
+                task.recon_fn(task.model, batch)
+
+        recon_s = recon_rate(one_recon, B, card, name)
+        st["recon_ms"] = recon_s * 1e3
+        st["recon_profile"] = profile_recon(one_recon, card)
+
+        # -- 14c. a cut-down f32 task, card against CPU ------------------------
+        small = config.override({"geometry.image_size": 32, "geometry.n_angles": 40,
+                                 "model.base_features": 8, "model.depth": 2,
+                                 "model.n_iters": 2, "model.use_bfloat16": False,
+                                 "train.batch_size": 2})
+        x0 = np.random.default_rng(0).standard_normal((32, 32))
+        recons = []
+        for d in (dev, torch.device("cpu")):
+            t_small = build_task(small, device=d, opnorm_x0=x0)
+            with torch.inference_mode():
+                im = random_phantom_batch(torch.Generator().manual_seed(7), 2, 32,
+                                          device="cpu").to(d)
+                recons.append(t_small.recon_fn(t_small.model,
+                                               t_small.batch_from_images(im)).cpu())
+        st["small_f32_card_vs_cpu"] = rel(recons[0], recons[1])
+        print(f"[check] {name} small f32 task recon, card vs CPU: rel "
+              f"{st['small_f32_card_vs_cpu']:.3e} (tol 1e-4)")
+        check(st["small_f32_card_vs_cpu"] < 1e-4, f"{name}: small recon card vs CPU")
+        del task, batch, recon
+        torch.cuda.empty_cache()
+
+        # -- 14d. training at full width at the preset's batch ------------------
+        n_steps = 3
+        tconfig = config.override({"train.log_every": 1})
+        ck.reset_launch_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = loop.train(tconfig, steps=n_steps, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        ran = _pair_route_counts(ck)
+        n_val = -(-tconfig.train.val_slices // B)
+        losses = [h["loss"] for h in res.history]
+        norms = [h["grad_norm"] for h in res.history]
+        aux = {k: [h[k] for h in res.history] for k in ("sino_loss", "img_loss")
+               if k in res.history[0]}
+        print(f"[train] {name} train({n_steps} steps, batch {B}) on the card: {run_s:.2f} s "
+              f"with build_task and {n_val} val batches; losses {losses} {aux}, grad norms "
+              f"{norms}, final eval {res.final_eval}; launches {ran}")
+        check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
+              f"{name}: non-finite loss {losses}")
+        check(all(math.isfinite(v) and v > 0 for v in norms), f"{name}: grad norms {norms}")
+        check(set(aux) == ({"sino_loss", "img_loss"} if name == "sino_unet_parallel" else set()),
+              f"{name}: aux terms {sorted(aux)} in the metrics")
+        trained = [q.detach().clone() for q in res.task.model.parameters()]
+        res.task.init_params(torch.Generator().manual_seed(
+            loop.derive_seed(config.train.seed, loop.INIT_STREAM)))
+        still = [n for (n, q), t in zip(res.task.model.named_parameters(), trained)
+                 if torch.equal(q.detach(), t)]
+        check(not still, f"{name}: parameters that did not move: {still[:5]}")
+        # the whole run from 0: build_task, the steps, the validation
+        # batches' synthesis and the final eval's recons
+        expect = _plus(want["build"], _times(n_steps, want["step"]),
+                       _times(n_val, _plus(want["synth"], want["recon"])))
+        check(ran == expect, f"{name} train(): launches {ran}, expected {expect}")
+        check(_other_launches(ck, pk, radial=False) == 0,
+              f"{name}: a CUDA-core, per-angle or probe kernel ran in train()")
+        task = res.task
+        state = loop.build_state(task, n_steps=100)
+        step = loop.make_train_step(task)
+        data = torch.Generator(device=dev)
+        step(state, data.manual_seed(0))
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        n_counted = 2
+        for i in range(n_counted):
+            step(state, data.manual_seed(1 + i))
+        torch.cuda.synchronize()
+        per_step = _times(1 / n_counted, _pair_route_counts(ck))
+        print(f"[train] {name} pair launches per train step after a warm one (fwd bf16, fwd "
+              f"split, adj bf16, adj split): {per_step}, expected {want['step']}")
+        check(per_step == want["step"], f"{name}: per-step launches {per_step}")
+        check(ck.build_pair_tables.launches + ck.build_pair_split_tables.launches == 0,
+              f"{name}: trig tables rebuilt in a step")
+        st.update(train_steps=n_steps, losses=losses, grad_norms=norms, aux=aux,
+                  launches_per_step=dict(zip(("fwd_tc", "fwd_split", "adj_tc", "adj_split"),
+                                             per_step)),
+                  **step_timings(step, state, data, B, name, card, reps=5))
+        del res, task, state, step
+        torch.cuda.empty_cache()
+
+        # -- 14e. bench --preset-recon at the matrix batch, by kind -------------
+        b = bench.MATRIX_BATCH[name]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--preset-recon", name, "--batch", str(b)])
+        row = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(json.dumps(row))
+        check(rc == 0 and row["preset"] == name and row["recon_slices_per_sec"] > 0,
+              f"{name}: bench row {row}")
+        big = build_task(config.override({"train.batch_size": b}), device=dev)
+        big.model.eval()
+        with torch.inference_mode():
+            bb = big.make_batch(torch.Generator(device=dev).manual_seed(0))
+        st["bench_row"] = row
+
+        def big_recon():
+            with torch.inference_mode():
+                big.recon_fn(big.model, bb)
+
+        st["bench_profile"] = profile_recon(big_recon, card, reps=2, label=f"recons at batch {b}")
+        del big, bb
+        torch.cuda.empty_cache()
+    # -- 14f. golden-size runs --------------------------------------------------
+    golden = json.loads((REPO / "tests" / "goldens.json").read_text())
+    for name in SLICE_B:
+        over = {"geometry.image_size": 32, "geometry.n_angles": 40, "geometry.sparsity": 4,
+                "model.base_features": 8, "model.depth": 2 if name.startswith("fbp") else 1,
+                "model.n_iters": 2, "train.batch_size": 2, "train.learning_rate": 2e-3,
+                "train.warmup_steps": 10, "train.steps": 100, "train.log_every": 50,
+                "train.eval_every": 1000, "train.seed": 0, "train.n_ellipses": 4}
+        config = get_preset(name).override(over)
+        untrained = loop.train(config, steps=0, device=dev, verbose=False).final_eval
+        t0 = time.perf_counter()
+        fin = loop.train(config, device=dev, verbose=False).final_eval
+        run_s = time.perf_counter() - t0
+        print(f"[train] {name} golden-size run (100 steps, the port's draws): final eval PSNR "
+              f"{fin['psnr']:.3f} dB SSIM {fin['ssim']:.4f}, untrained {untrained['psnr']:.3f} "
+              f"/ {untrained['ssim']:.4f}; tests/goldens.json (JAX's draws, not gated) "
+              f"{golden[name]}; {run_s:.2f} s")
+        check(fin["psnr"] > untrained["psnr"] and fin["ssim"] > untrained["ssim"],
+              f"{name}: training did not improve the eval ({untrained} -> {fin})")
+        stats[name]["golden"] = {"final": fin, "untrained": untrained,
+                                 "goldens_json": golden[name], "run_s": run_s}
+    return stats
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1581,6 +1940,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
+    t_start = last = time.perf_counter()
+    phase_s = {}
+
+    def elapsed(label):
+        nonlocal last
+        now = time.perf_counter()
+        phase_s[label] = now - last
+        last = now
+        print(f"[chip_smoke] {label}: {phase_s[label]:.1f} s ({now - t_start:.1f} s in all)")
+
     print(f"[chip_smoke] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 1. build ----------------------------------------------------------
@@ -1947,15 +2316,24 @@ def main():
     del big
     profile_recon(one_recon, card)
 
+    elapsed("phases 1-5 (build, pair kernels, pdunet_parallel)")
     radial_entries, radial_stats = radial_phases(dev, card, gen)
     for e in radial_entries:
         if e["name"] in ("project_group", "backproject_group"):
             fwd_op = e["name"] == "project_group"
             e["hgmma"] = hgmma["group_tc_fwd" if fwd_op else "group_tc_adj"]
             e["hgmma_f32"] = hgmma["group_split_fwd" if fwd_op else "group_split_adj"]
+    elapsed("phases 6-8 (radial)")
     probe_entries = probe_phases(dev, card, gen)
+    elapsed("phases 9-11 (probes)")
     bench_row = bench_phase(card)
+    elapsed("phase 12 (bench headline)")
     train_stats = train_phases(dev, card)
+    elapsed("phase 13 (training)")
+    dense = dense_plan_phase(dev, card, gen)
+    elapsed("phase 14a (dense plan)")
+    slice_b = slice_b_phases(dev, card)
+    elapsed("phases 14b-f (slice B presets)")
     for e in entries + radial_entries:
         preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
                   "pdunet_parallel", "project_group": "pdunet_radial",
@@ -1964,6 +2342,20 @@ def main():
             op = "fwd" if e["name"].startswith("project") else "adj"
             e["launches_per_train_step"] = {
                 "preset": preset, **train_stats[preset]["launches_per_step"][op]}
+        if e["name"] in ("project_pair_group", "backproject_pair_group"):
+            # the slice-B paths, each counted from 0 (phase 14): serving
+            # (build_task + 2 batches) and one train step; the split route
+            # on the dense 360-angle plan (phase 14a)
+            i = 0 if e["name"].startswith("project") else 2
+            e["launches_slice_b"] = {
+                name: {"serve_tc": st["serve_launches"][i],
+                       "serve_split": st["serve_launches"][i + 1],
+                       "train_step_tc": st["launches_per_step"]["fwd_tc" if i == 0 else "adj_tc"],
+                       "train_step_split": st["launches_per_step"][
+                           "fwd_split" if i == 0 else "adj_split"]}
+                for name, st in slice_b.items()}
+            e["dense_plan_split"] = {k: v for k, v in dense.items()
+                                     if k.startswith(e["name"])}
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1977,7 +2369,8 @@ def main():
                       "pair_split_call_profile_ms": split_shares,
                       "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
-                      "train": train_stats, "build_s": build_s, "card": card}))
+                      "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
+                      "build_s": build_s, "phase_s": phase_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))
     return 0

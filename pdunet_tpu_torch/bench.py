@@ -12,6 +12,8 @@ about an H100.
     python -m pdunet_tpu_torch.bench --all            # + roofline, A / A† / FBP, train rows
     python -m pdunet_tpu_torch.bench --train-scan     # + the train step's batch ladder
     python -m pdunet_tpu_torch.bench --preset-recon pdunet_radial --batch 128
+    python -m pdunet_tpu_torch.bench --preset-recon lpd_parallel --batch 256
+    python -m pdunet_tpu_torch.bench --unet-scan      # UNet variants and parts → unet_scan.json
     python -m pdunet_tpu_torch.bench --device cpu --batch 2 --image-size 32 --n-iters 2
 
 ``--all`` prints the secondary rows to stderr and writes them to
@@ -20,11 +22,14 @@ step of the headline config at ``min(batch, 32)`` (seconds per step, its
 split into synthesis, forward with the loss, backward and optimizer, and
 peak memory). ``--train-scan`` adds the train step's batch ladder: that
 batch without remat, then 2×, 4× and 8× with remat, stopping at the first
-batch that runs out of card memory. Ported presets: ``pdunet_parallel`` and
-``pdunet_radial``; the others and ``--unet-scan`` wait for later slices
-(ROADMAP.md) and raise ``NotImplementedError``. Rows carry no test
-PSNR/SSIM: the JAX harness reads those from artifacts of checkpoints
-trained on a TPU.
+batch that runs out of card memory. ``--unet-scan`` times the UNet's
+stem x upsample variants and its per-level parts at the flagship
+``fbp_unet`` shape and writes them to ``unet_scan.json`` in the working
+directory. Ported presets: ``pdunet_parallel``, ``pdunet_radial``,
+``fbp_unet_parallel``, ``sino_unet_parallel`` and ``lpd_parallel``; the
+others wait for later slices (ROADMAP.md) and raise
+``NotImplementedError``. Rows carry no test PSNR/SSIM: the JAX harness
+reads those from artifacts of checkpoints trained on a TPU.
 """
 
 from __future__ import annotations
@@ -54,13 +59,11 @@ H100_BF16_PEAK = 989e12
 
 #: the batch each ported preset's end-to-end recon is benchmarked at
 #: (--matrix), the JAX harness's saturating batches
-MATRIX_BATCH = {"pdunet_parallel": 256, "pdunet_radial": 128}
+MATRIX_BATCH = {"pdunet_parallel": 256, "fbp_unet_parallel": 256, "sino_unet_parallel": 128,
+                "lpd_parallel": 256, "pdunet_radial": 128}
 
 #: presets not ported yet → the ROADMAP.md slice that ports them
 _UNPORTED = {
-    "sino_unet_parallel": "slice B (item 11)",
-    "fbp_unet_parallel": "slice B (item 11)",
-    "lpd_parallel": "slice B (item 11)",
     "pdunet_fan": "slice C (item 12)",
     "sino_unet_radial": "slice D (item 15)",
 }
@@ -70,7 +73,7 @@ _MIN_WINDOW_S = 0.1
 
 #: which batch entry of each model kind the timed call takes as its argument
 #: (the JAX harness's loop carry; the other entries stay fixed)
-_CARRY_KEY = {"pdunet": "f0"}
+_CARRY_KEY = {"pdunet": "f0", "lpd": "f0", "fbp_unet": "fbp", "sino_unet": "sino_in"}
 
 
 def _window(call, device, iters: int) -> float:
@@ -293,6 +296,79 @@ def _roofline(task, batch, dt: float, n_iters: int, B: int, sparse_geom, device)
     }
 
 
+def bench_unet_scan(batch: int = 128, image_size: int = 256, base_features: int = 64,
+                    depth: int = 3, device="cuda") -> dict:
+    """Where the UNet's time goes, at the flagship fbp_unet shape (bf16,
+    random weights from seed 0):
+
+    * variants: the whole forward for stem ∈ {1, 2} x upsample ∈
+      {convtranspose, shuffle};
+    * parts: each stem-2 piece timed alone at its shape in the network
+      (encoder and decoder ConvBlocks per level, the bottleneck, both
+      upsample ops, the 1x1 head).
+
+    Shapes are NCHW ``[batch, channels, h, w]``."""
+    from pdunet_tpu_torch.models.unet import Conv, ConvBlock, ConvTranspose, UNet, _d2s_nchw
+
+    device = torch.device(device)
+    bf16 = torch.bfloat16
+    kw = dict(dtype=bf16, device="cpu")
+
+    def t_module(module, shape, dtype=bf16):
+        torch.manual_seed(0)  # the weights of modules built without a generator
+        module = module.to(device)
+        x = torch.ones(shape, dtype=dtype, device=device)
+        return timeit(module, x)
+
+    class Shuffle(torch.nn.Module):
+        def __init__(self, cin, features):
+            super().__init__()
+            self.conv = Conv(cin, 4 * features, 1, **kw)
+
+        def forward(self, x):
+            return _d2s_nchw(self.conv(x), 2)
+
+    out = {"batch": batch, "image_size": image_size, "base_features": base_features,
+           "depth": depth, "layout": "NCHW", "device": device_kind(device),
+           "variants": [], "parts": []}
+    for stem in (1, 2):
+        for up in ("convtranspose", "shuffle"):
+            m = UNet(in_channels=1, base_features=base_features, depth=depth, stem=stem,
+                     upsample=up, generator=torch.Generator().manual_seed(0), **kw)
+            dt = t_module(m, (batch, 1, image_size, image_size), torch.float32)
+            out["variants"].append({"stem": stem, "upsample": up,
+                                    "ms_per_batch": round(dt * 1e3, 3),
+                                    "slices_per_sec": round(batch / dt, 2)})
+            print(json.dumps(out["variants"][-1]), file=sys.stderr)
+
+    stem = 2
+    feats = UNet.level_features(base_features, stem, depth)
+    n0 = image_size // stem
+
+    def part(name, module, shape, **extra):
+        dt = t_module(module, shape)
+        out["parts"].append({"part": name, "shape": list(shape), **extra,
+                             "ms_per_batch": round(dt * 1e3, 3)})
+
+    for d in range(depth):
+        h = n0 >> d
+        c_in = stem * stem if d == 0 else feats[d - 1]
+        part(f"enc{d}", ConvBlock(c_in, feats[d], **kw), (batch, c_in, h, h),
+             features=feats[d])
+    h = n0 >> depth
+    part("bottleneck", ConvBlock(feats[depth - 1], feats[depth], **kw),
+         (batch, feats[depth - 1], h, h), features=feats[depth])
+    for d in reversed(range(depth)):
+        h = n0 >> (d + 1)
+        c_in = feats[d + 1]
+        part(f"up{d}_convtranspose", ConvTranspose(c_in, feats[d], **kw), (batch, c_in, h, h))
+        part(f"up{d}_shuffle", Shuffle(c_in, feats[d]), (batch, c_in, h, h))
+        part(f"dec{d}", ConvBlock(2 * feats[d], feats[d], **kw),
+             (batch, 2 * feats[d], 2 * h, 2 * h))
+    part("head_1x1", Conv(feats[0], stem * stem, 1, **kw), (batch, feats[0], n0, n0))
+    return out
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -317,8 +393,8 @@ def parse_args(argv=None):
     p.add_argument("--sparsity", type=int, default=None,
                    help="with --preset-recon: override the undersampling factor")
     p.add_argument("--unet-scan", action="store_true",
-                   help="UNet upsample/stem variants (not ported: needs "
-                        "upsample='shuffle', ROADMAP item 11)")
+                   help="time UNet upsample/stem variants and per-level parts at the "
+                        "flagship fbp_unet shape; writes unet_scan.json and exits")
     args = p.parse_args(argv)
     args.all = args.all or args.matrix or args.train_scan or args.scale_scan
     return args
@@ -390,10 +466,15 @@ def _secondary(args, config, task, batch, dt, result) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.unet_scan:
-        raise NotImplementedError("--unet-scan needs upsample='shuffle', which is not "
-                                  "ported yet (ROADMAP.md item 11)")
     watchdog.start(float(os.environ.get("PDUNET_WATCHDOG_SECS", 0)), label="bench")
+
+    if args.unet_scan:
+        scan = bench_unet_scan(batch=min(args.batch, 128), image_size=args.image_size,
+                               device=args.device)
+        with open("unet_scan.json", "w") as f:
+            json.dump(scan, f, indent=2)
+        print(json.dumps(scan, indent=2))
+        return 0
 
     if args.preset_recon:
         row = bench_preset_recon(args.preset_recon, args.batch, stem=args.stem,

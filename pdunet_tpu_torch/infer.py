@@ -10,6 +10,7 @@ from seed 0 without one.
 Usage:
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --n-slices 32
   python -m pdunet_tpu_torch.infer --preset pdunet_radial --n-slices 32
+  python -m pdunet_tpu_torch.infer --preset lpd_parallel --n-slices 32
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --ckpt-dir runs/pd --ckpt best
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --device cpu \\
       --set geometry.image_size=32 --json-out metrics.json
@@ -34,10 +35,15 @@ from pdunet_tpu_torch.training.loop import build_state
 from pdunet_tpu_torch.training.tasks import build_task
 
 
+#: presets the port runs (the others raise NotImplementedError in build_task)
+PORTED = ("pdunet_parallel", "pdunet_radial", "fbp_unet_parallel", "sino_unet_parallel",
+          "lpd_parallel")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--preset", required=True)
+    p.add_argument("--preset", required=True, help=f"ported: {', '.join(PORTED)}")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
     p.add_argument("--ckpt-dir", default=None, help="checkpoint to evaluate")
     p.add_argument("--ckpt", default="latest",

@@ -1,19 +1,24 @@
-"""Unrolled Primal-Dual UNet (port of ``pdunet_tpu/models/primal_dual.py``,
-per-iteration weights, real or complex operators).
+"""Unrolled primal-dual networks (port of ``pdunet_tpu/models/primal_dual.py``):
+Learned Primal-Dual (LPD: small 3-conv PReLU nets, 5-channel memories) and
+the Primal-Dual UNet (UNets, one-channel memories), real or complex
+operators.
 
 Per iteration, with the operators coupled through memory channel 0:
 
     h ← h + DualNet([h, A f₀ᶜʰ, g])
     f ← f + PrimalNet([f, A† h₀ᶜʰ])
 
-With ``complex_ops`` (radial MRI) every quantity is a (Re, Im) channel pair
-on dim 1: the operators see the complex number made from channels 0:2, the
-dual UNet takes 6 channels (h, A f, g) and the primal UNet 4 (f, A† h), both
-put out 2, and the model returns a complex tensor.
+The primal memory ``f`` starts as ``f0`` tiled over ``primal_channels``,
+the dual memory ``h`` as zeros with ``dual_channels``. With ``complex_ops``
+(radial MRI) every quantity is a (Re, Im) channel pair on dim 1, the
+memories tile as [Re, Im, Re, Im, …], the operators see the complex number
+made from channels 0:2, and the model returns a complex tensor.
 
 The JAX package scans one ``_PDIteration`` over the unroll; here the unroll
 is a Python loop over ``iterations``, each holding its own dual and primal
-UNet (flax's ``UNet_0`` and ``UNet_1`` inside ``Scan_PDIteration_0``).
+net (flax's ``UNet_0`` / ``ConvNet_0`` and ``UNet_1`` / ``ConvNet_1``
+inside ``Scan_PDIteration_0``), or, with shared weights, one iteration
+applied ``n_iters`` times.
 
 ``remat`` recomputes each iteration's body in the backward instead of
 keeping its activations (``torch.utils.checkpoint``; flax's ``nn.remat``):
@@ -29,9 +34,46 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pdunet_tpu_torch.models.unet import UNet
+from pdunet_tpu_torch.models.unet import Conv, UNet
 
-__all__ = ["PDIteration", "UnrolledPrimalDual", "make_pdunet"]
+__all__ = ["PReLU", "ConvNet", "PDIteration", "UnrolledPrimalDual", "make_lpd", "make_pdunet"]
+
+
+class PReLU(nn.Module):
+    """flax ``nn.PReLU``: one scalar ``negative_slope`` (float32, starts at
+    0.01), applied in the input's dtype: where(x ≥ 0, x, slope·x).
+    ``torch.nn.PReLU`` differs in both: it starts at 0.25 and computes in
+    its weight's dtype."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.full((), 0.01, device=device))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
+
+
+class ConvNet(nn.Module):
+    """The small LPD subnet (flax ``ConvNet``, its default 3 layers): two 3x3
+    convolutions each followed by PReLU, then a linear 3x3 convolution. The
+    input is cast to ``dtype``, the output to float32. Submodules:
+    ``convs`` = Conv_0 … Conv_2, ``acts`` = PReLU_0, PReLU_1."""
+
+    def __init__(self, in_channels: int, out_channels: int, features: int = 32,
+                 dtype=torch.float32, generator=None, device="cuda"):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        widths = (in_channels, features, features, out_channels)
+        self.convs = nn.ModuleList(
+            [Conv(cin, cout, 3, **kw) for cin, cout in zip(widths, widths[1:])])
+        self.acts = nn.ModuleList([PReLU(device=device) for _ in range(2)])
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        for conv, act in zip(self.convs, self.acts):
+            x = act(conv(x))
+        return self.convs[-1](x).float()
 
 
 class PDIteration(nn.Module):
@@ -54,16 +96,30 @@ def _to_complex(x: torch.Tensor) -> torch.Tensor:
 class UnrolledPrimalDual(nn.Module):
     """Call with the measurement ``g`` (B, A, S) and the initial image
     ``f0`` (B, N, N); returns the reconstruction (B, N, N), float32 or,
-    with ``complex_ops``, complex. Primal and dual memories have one
-    (real or complex) channel each."""
+    with ``complex_ops``, complex.
 
-    def __init__(self, A: Callable, At: Callable, iterations,
-                 complex_ops: bool = False, remat: bool = False):
+    ``iterations`` holds one ``PDIteration`` per unroll step, or a single
+    one that all ``n_iters`` steps share (flax's ``share_weights``). The
+    memories have ``primal_channels`` / ``dual_channels`` (real or complex)
+    channels."""
+
+    def __init__(self, A: Callable, At: Callable, iterations, complex_ops: bool = False,
+                 remat: bool = False, n_iters: int = None, primal_channels: int = 1,
+                 dual_channels: int = 1):
         super().__init__()
         self.A, self.At = A, At
         self.complex_ops = complex_ops
         self.remat = remat
         self.iterations = nn.ModuleList(iterations)
+        self.n_iters = len(self.iterations) if n_iters is None else n_iters
+        if len(self.iterations) not in (1, self.n_iters):
+            raise ValueError(f"{len(self.iterations)} iterations for an unroll of "
+                             f"{self.n_iters}: give one per step, or one to share")
+        self.primal_channels, self.dual_channels = primal_channels, dual_channels
+
+    @property
+    def share_weights(self) -> bool:
+        return len(self.iterations) == 1 < self.n_iters
 
     def _pack(self, z: torch.Tensor) -> torch.Tensor:
         return _to_channels(z) if self.complex_ops else z[:, None].float()
@@ -80,11 +136,15 @@ class UnrolledPrimalDual(nn.Module):
         return f, h
 
     def forward(self, g: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:
-        f = self._pack(f0)
         g_ch = self._pack(g)
-        h = torch.zeros_like(g_ch)
+        f = self._pack(f0)
+        if self.primal_channels > 1:
+            f = f.repeat(1, self.primal_channels, 1, 1)
+        h = g_ch.new_zeros((g_ch.shape[0], g_ch.shape[1] * self.dual_channels)
+                           + tuple(g_ch.shape[2:]))
         remat = self.remat and torch.is_grad_enabled()
-        for it in self.iterations:
+        for i in range(self.n_iters):
+            it = self.iterations[i % len(self.iterations)]
             if remat:
                 # the body draws no random numbers: no RNG state to replay
                 f, h = checkpoint(self._iteration, it, f, h, g_ch,
@@ -98,13 +158,36 @@ def make_pdunet(A: Callable, At: Callable, n_iters: int = 4,
                 base_features: int = 32, depth: int = 3, stem: int = 1,
                 complex_ops: bool = False, dtype=torch.float32,
                 generator: torch.Generator = None,
-                device="cuda", remat: bool = False) -> UnrolledPrimalDual:
+                device="cuda", remat: bool = False,
+                upsample: str = "convtranspose") -> UnrolledPrimalDual:
     """Primal-Dual UNet with its own weights in every iteration; ``remat``
     recomputes each iteration in the backward (same results and names)."""
     step = 2 if complex_ops else 1
     kw = dict(out_channels=step, base_features=base_features, depth=depth,
-              stem=stem, dtype=dtype, generator=generator, device=device)
+              stem=stem, dtype=dtype, upsample=upsample, generator=generator,
+              device=device)
     return UnrolledPrimalDual(A, At, [
         PDIteration(UNet(in_channels=3 * step, **kw), UNet(in_channels=2 * step, **kw))
         for _ in range(n_iters)
     ], complex_ops=complex_ops, remat=remat)
+
+
+def make_lpd(A: Callable, At: Callable, n_iters: int = 10, features: int = 32,
+             primal_channels: int = 5, dual_channels: int = 5,
+             complex_ops: bool = False, dtype=torch.float32,
+             share_weights: bool = False, generator: torch.Generator = None,
+             device="cuda", remat: bool = False) -> UnrolledPrimalDual:
+    """Learned Primal-Dual with the Adler & Öktem defaults: the dual net
+    maps [h, A f, g] (real: 5 + 1 + 1 = 7 channels) to 5, the primal net
+    [f, A† h] (5 + 1 = 6) to 5; complex operators double every count."""
+    step = 2 if complex_ops else 1
+    kw = dict(features=features, dtype=dtype, generator=generator, device=device)
+
+    def iteration():
+        return PDIteration(
+            ConvNet(step * (dual_channels + 2), step * dual_channels, **kw),
+            ConvNet(step * (primal_channels + 1), step * primal_channels, **kw))
+
+    return UnrolledPrimalDual(A, At, [iteration() for _ in range(1 if share_weights else n_iters)],
+                              complex_ops=complex_ops, remat=remat, n_iters=n_iters,
+                              primal_channels=primal_channels, dual_channels=dual_channels)

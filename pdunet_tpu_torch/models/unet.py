@@ -25,7 +25,7 @@ from torch import nn
 
 from pdunet_tpu_torch.utils.precision import exact_f32_conv
 
-__all__ = ["UNet", "space_to_depth", "depth_to_space", "lecun_normal_"]
+__all__ = ["UNet", "UPSAMPLE", "space_to_depth", "depth_to_space", "lecun_normal_"]
 
 # std of a unit normal truncated to [-2, 2]; flax divides by it so the
 # truncated draw keeps the requested variance
@@ -122,22 +122,33 @@ class ConvBlock(nn.Module):
         return x
 
 
+#: decoder 2x upsampling ops (flax UNet's ``upsample``)
+UPSAMPLE = ("convtranspose", "shuffle")
+
+
 class UNet(nn.Module):
-    """Encoder-decoder UNet with skip connections (decoder upsampling by
-    2x2 stride-2 transposed convolution).
+    """Encoder-decoder UNet with skip connections.
+
+    ``upsample`` is the decoder's 2x upsampling: "convtranspose", a 2x2
+    stride-2 transposed convolution, or "shuffle", a 1x1 convolution to 4x
+    the features followed by ``depth_to_space(·, 2)`` in flax's channel
+    order (the same linear family and parameter count; checkpoints do not
+    carry across the two).
 
     ``forward`` takes and returns NCHW; the output is float32. Submodules
     are ordered as flax creates them: ``blocks`` = ConvBlock_0 … ConvBlock_2d
-    (encoder, bottleneck, decoder), ``ups`` = ConvTranspose_0 …, ``head`` =
-    Conv_0.
+    (encoder, bottleneck, decoder), ``ups`` = ConvTranspose_0 … (shuffle:
+    Conv_0 … Conv_{depth-1}), ``head`` = Conv_0 (shuffle: Conv_{depth}).
     """
 
     def __init__(self, in_channels: int, out_channels: int = 1,
                  base_features: int = 64, depth: int = 4, stem: int = 1,
-                 dtype=torch.float32,
+                 dtype=torch.float32, upsample: str = "convtranspose",
                  generator: torch.Generator = None, device="cuda"):
         super().__init__()
-        self.depth, self.stem, self.dtype = depth, stem, dtype
+        if upsample not in UPSAMPLE:
+            raise ValueError(f"unknown upsample {upsample!r}; options: {', '.join(UPSAMPLE)}")
+        self.depth, self.stem, self.dtype, self.upsample = depth, stem, dtype, upsample
         feats = self.level_features(base_features, stem, depth)
         kw = dict(dtype=dtype, generator=generator, device=device)
         cin = in_channels * stem * stem
@@ -149,7 +160,8 @@ class UNet(nn.Module):
         cin = feats[depth]
         ups = []
         for d in reversed(range(depth)):
-            ups.append(ConvTranspose(cin, feats[d], **kw))
+            ups.append(ConvTranspose(cin, feats[d], **kw) if upsample == "convtranspose"
+                       else Conv(cin, 4 * feats[d], 1, **kw))
             blocks.append(ConvBlock(2 * feats[d], feats[d], **kw))
             cin = feats[d]
         self.blocks = nn.ModuleList(blocks)
@@ -177,6 +189,8 @@ class UNet(nn.Module):
         x = self.blocks[self.depth](x)
         for i, d in enumerate(reversed(range(self.depth))):
             x = self.ups[i](x)
+            if self.upsample == "shuffle":
+                x = _d2s_nchw(x, 2)
             x = torch.cat([x, skips[d]], dim=1)
             x = self.blocks[self.depth + 1 + i](x)
         x = self.head(x)

@@ -2,11 +2,12 @@
 without its mesh, file-backed data and TensorBoard branches).
 
 One step: the batch is drawn on the device (``task.make_batch``: phantoms,
-the f32 measurement and the direct recon f0), the loss runs the unroll (A/σ
-and A†/σ in the preset's dtype), the backward runs the same projector
-kernels again (vjp(A) = A†, vjp(A†) = A), the gradients are clipped to a
-global norm, and Adam steps with the step's learning rate. The host fetches
-the scalar metrics only on log steps.
+the f32 measurement and the network's input), the loss runs the model (an
+unroll with A/σ and A†/σ in the preset's dtype, or a UNet, whose sino task
+adds an f32 FBP), the backward runs the same projector kernels again
+(vjp(A) = A†, vjp(A†) = A), the gradients are clipped to a global norm, and
+Adam steps with the step's learning rate. The host fetches the scalar
+metrics only on log steps.
 
 The optimizer is optax's, written out: ``adam`` (eps 1e-8 added to √v̂, as
 ``torch.optim.Adam`` does) behind ``clip_by_global_norm`` when
@@ -162,7 +163,8 @@ def make_train_step(task: Task, from_images: bool = False):
     ground-truth images (radial: complex, or a (re, im) pair) and
     ``task.batch_from_images`` synthesises the measurement inside the step.
     The step updates ``state`` in place and returns ``{"loss",
-    "grad_norm"}`` as 0-d device tensors (the norm is taken before
+    "grad_norm"}`` and the task's aux terms (sino_unet's ``sino_loss`` and
+    ``img_loss``) as 0-d device tensors (the norm is taken before
     clipping). ``marks``: a list that receives a CUDA event (host time on
     the CPU) after each phase: synthesis, forward (with the loss),
     backward, optimizer."""
@@ -185,7 +187,9 @@ def make_train_step(task: Task, from_images: bool = False):
         _mark(marks, "backward", device)
         norm = apply_gradients(state)
         _mark(marks, "optimizer", device)
-        return {"loss": loss.detach(), "grad_norm": norm, **aux}
+        # aux: the task's loss terms (sino_unet's sino_loss / img_loss)
+        return {"loss": loss.detach(), "grad_norm": norm,
+                **{k: v.detach() for k, v in aux.items()}}
 
     return step
 

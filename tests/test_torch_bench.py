@@ -14,6 +14,7 @@ from pdunet_tpu.geometry import GOLDEN_ANGLE
 from pdunet_tpu.geometry import ParallelGeometry as JaxGeometry
 from pdunet_tpu.geometry import build_parallel_plan as jax_plan
 from pdunet_tpu_torch import bench
+from pdunet_tpu_torch.configs import get_preset
 from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
 
 torch.set_num_threads(1)
@@ -103,12 +104,50 @@ def test_projector_flops_match_jax_formula(kw):
 
 
 def test_unported_presets_and_flags_raise():
-    with pytest.raises(NotImplementedError, match="slice B"):
-        bench.bench_preset_recon("fbp_unet_parallel", 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice D"):
+        bench.bench_preset_recon("sino_unet_radial", 2, device="cpu")
     with pytest.raises(NotImplementedError, match="slice C"):
         bench.main(["--preset-recon", "pdunet_fan", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="shuffle"):
-        bench.main(_TINY + ["--unet-scan"])
+
+
+def test_unet_scan_on_cpu(tmp_path, monkeypatch, capsys):
+    """--unet-scan at a tiny size: the four stem x upsample variants and the
+    stem-2 parts, written to unet_scan.json in the working directory."""
+    monkeypatch.chdir(tmp_path)
+    assert bench.main(["--unet-scan", "--device", "cpu", "--batch", "1",
+                       "--image-size", "16"]) == 0
+    scan = json.loads((tmp_path / "unet_scan.json").read_text())
+    assert json.loads(capsys.readouterr().out) == scan
+    assert (scan["batch"], scan["image_size"], scan["base_features"], scan["depth"]) == (
+        1, 16, 64, 3)
+    assert [(v["stem"], v["upsample"]) for v in scan["variants"]] == [
+        (1, "convtranspose"), (1, "shuffle"), (2, "convtranspose"), (2, "shuffle")]
+    assert all(v["ms_per_batch"] > 0 for v in scan["variants"])
+    parts = {p["part"]: p for p in scan["parts"]}
+    assert list(parts) == ["enc0", "enc1", "enc2", "bottleneck",
+                           "up2_convtranspose", "up2_shuffle", "dec2",
+                           "up1_convtranspose", "up1_shuffle", "dec1",
+                           "up0_convtranspose", "up0_shuffle", "dec0", "head_1x1"]
+    # stem-2 level features 128, 256, 512, 512 (capped); NCHW shapes
+    assert parts["enc0"]["shape"] == [1, 4, 8, 8] and parts["enc0"]["features"] == 128
+    assert parts["bottleneck"]["shape"] == [1, 512, 1, 1]
+    assert parts["up0_shuffle"]["shape"] == [1, 256, 4, 4]
+    assert parts["head_1x1"]["shape"] == [1, 128, 8, 8]
+    assert all(p["ms_per_batch"] > 0 for p in scan["parts"])
+    assert not (tmp_path / "artifacts").exists()
+
+
+@pytest.mark.parametrize("preset,carry", [("fbp_unet_parallel", "fbp"),
+                                          ("sino_unet_parallel", "sino_in"),
+                                          ("lpd_parallel", "f0")])
+def test_slice_b_preset_recon_rows(preset, carry):
+    """The three slice B presets bench through their carry (the JAX
+    harness's _CARRY_KEY) at their matrix batches (as in JAX)."""
+    assert bench._CARRY_KEY[get_preset(preset).model.kind] == carry
+    assert bench.MATRIX_BATCH[preset] == {"fbp_unet_parallel": 256, "sino_unet_parallel": 128,
+                                          "lpd_parallel": 256}[preset]
+    row = bench.bench_preset_recon(preset, 1, image_size=32, n_angles=40, device="cpu")
+    assert row["preset"] == preset and row["recon_slices_per_sec"] > 0
 
 
 _TRAIN_SMALL = {"geometry.image_size": 32, "geometry.n_angles": 96,

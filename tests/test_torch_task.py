@@ -156,7 +156,7 @@ def test_build_task_defaults_to_cuda():
 
 def test_unported_task_kinds_raise():
     with pytest.raises(NotImplementedError):
-        build_task(get_preset("fbp_unet_parallel"), device="cpu")
+        build_task(get_preset("sino_unet_radial"), device="cpu")
     with pytest.raises(NotImplementedError):
         build_task(get_preset("pdunet_fan"), device="cpu")
 
