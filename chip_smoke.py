@@ -123,13 +123,34 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      lpd 40 + 38 bf16 and 2 + 2 split), its time, split, idle share and
      peak memory, and ``bench --preset-recon`` at MATRIX_BATCH with device
      time by kind; and the three golden-size runs.
+ 15. pdunet_fan: (a) both pair routes on its backing plans, the sparse one
+     (104 angles from about −21° to 291°, P = 30 pairs per group, most of
+     sign +1, 7 / 9 unpaired rows, S = 251, K = 179) and the dense one
+     (402 angles, P = 120): tables bit-equal, both kernels against their
+     plain versions at B = 4 and 128 (bf16 ≤ 5e-3, split f32 ≤ 1e-5), also
+     where only the sign +1 pairs carry signal, the fan operators' f32 dot
+     test, and device times per group call beside the bound, the plain
+     version and a matmul of stage 1's shape; (b) the preset at full width
+     as in phase 14 (SLICE_C_LAUNCHES: its unroll counts equal
+     pdunet_parallel's, 8 + 8 bf16 per recon, since a fan A is one
+     backing-plan call per group; the banded rebinning weights built once
+     per plan and use, FAN_BAND_BUILDS), low-dose noise in its batches;
+ 16. sino_unet_radial: (a) the per-angle split route on its dense
+     512-spoke plan (A_x = A_y = 256, K = 256, S = 1024): tables bit-equal
+     and their size, both kernels against their plain f32 versions at B' =
+     8 and 128 (≤ 1e-5) and timed beside the split bound, the plain version
+     and a full-f32 matmul of stage 1's shape; (b) the preset at full width
+     (2 split adjoint calls per recon; per step 4 split forward and 2 split
+     adjoint; no pair, bf16 or CUDA-core launch).
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
 builders of both routes of the pair and of the per-angle kernels; rows 1-4
 carry their launches per train step, rows 1-2 also their launches on each
-slice-B path and their dense-plan split-route times), then the card's name
-and power limit, then the last line ``{"ok": true, "device": {...}}``.
+slice-B path and on pdunet_fan's, their dense-plan split-route times and
+their times on the fan backing plans, rows 3-4 their launches on
+sino_unet_radial's path and their times on its dense plan), then the card's
+name and power limit, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1926,6 +1947,501 @@ def slice_b_phases(dev, card):
     return stats
 
 
+#: group calls of the slice-C paths, derived from the code, as (forward
+#: bf16, forward split, adjoint bf16, adjoint split) per phase, on the pair
+#: kernels (pdunet_fan) or the per-angle kernels (sino_unet_radial).
+#: pdunet_fan is pdunet_parallel on the fan's backing plan, since one fan A
+#: or A† is one backing-plan call per group: build_task's 21 bf16 A†A of
+#: the power iteration, 2 groups each; per synthesis one f32 A and one FBP
+#: (its backprojection on the split route); per recon 4 bf16 A and A†; per
+#: step 16 + 2 forward and 14 + 2 adjoint (TRAIN_STEP_LAUNCHES).
+#: sino_unet_radial runs the f32 dense radial operators only: per synthesis
+#: one A of the complex images (2 groups, re and im stacked), per recon one
+#: DCF adjoint, per step the synthesis, the img_loss's DCF adjoint and its
+#: vjp (an A).
+SLICE_C_LAUNCHES = {
+    "pdunet_fan": {"build": (42, 0, 42, 0), "synth": (0, 2, 0, 2),
+                   "recon": (8, 0, 8, 0), "step": (16, 2, 14, 2)},
+    "sino_unet_radial": {"build": (0, 0, 0, 0), "synth": (0, 2, 0, 0),
+                         "recon": (0, 0, 0, 2), "step": (0, 4, 0, 2)},
+}
+
+#: builds of the fan plans' banded rebinning weights (ops/radon/fan.py,
+#: once per plan and use): the bf16 unroll plan's forward band in
+#: build_task's power iteration, the f32 synthesis plan's forward and FBP
+#: bands at the first synthesis; none after
+FAN_BAND_BUILDS = {"build": 1, "serve": 3}
+
+
+def _group_route_counts(ck):
+    """(forward bf16, forward split, adjoint bf16, adjoint split) launches
+    of the per-angle wrappers."""
+    f, a = ck.project_group, ck.backproject_group
+    return (f.launches_tc, f.launches_split, a.launches_tc, a.launches_split)
+
+
+@contextlib.contextmanager
+def counting_band_builds():
+    """Count the fan plans' band-weight builds (ops/radon/fan.py builds
+    them once per plan and use, where the JAX package regenerates them in
+    every call): yields a list whose length is the count."""
+    from pdunet_tpu_torch.ops.radon import fan
+
+    real, calls = fan._band_weights, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    fan._band_weights = counted
+    try:
+        yield calls
+    finally:
+        fan._band_weights = real
+
+
+def _chunked(plain, chunk):
+    """A plain version run over batch chunks of ``chunk`` (every function
+    here is linear in its batch): the plain per-angle versions at B' = 128
+    on the 512-spoke plan would hold tens of GB of intermediates."""
+    def call(x, *a, **k):
+        return torch.cat([plain(x[i:i + chunk], *a, **k) for i in range(0, x.shape[0], chunk)])
+    return call
+
+
+def fan_plan_phase(dev, card, gen):
+    """Phase 15a: rows 1-2 on pdunet_fan's backing plans, the sparse one
+    (104 backing angles from about −21° to 291°, P = 30 pairs per group,
+    most of sign +1, S = 251, K = 179) and the dense one (402 angles, P =
+    120). Per plan: both routes' tables bit-equal to the plain builders';
+    both kernels against their plain versions at B = 4 and 128, bf16
+    (≤ 5e-3) and split f32 (≤ 1e-5), also where only the sign +1 pairs carry
+    signal (the forward's rows of those pairs; the adjoint with every other
+    row of its input zeroed); the fan operators' f32 dot test; device times
+    per group call beside the bound, the plain version and a torch.matmul
+    of stage 1's shape; and a bf16 fan A and A† at B = 128 against their
+    backing-plan calls alone (the rebinning's cost)."""
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon.fan import make_fan_ops
+    from pdunet_tpu_torch.ops.radon.parallel import parallel_backproject, parallel_project
+    from pdunet_tpu_torch.training.tasks import build_geometries
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    dense, sparse = build_geometries(get_preset("pdunet_fan").geometry)
+    out = {}
+    for label, geom in (("sparse", sparse), ("dense", dense)):
+        ops = make_fan_ops(geom, dtype=f32, device=dev)
+        plan = ops.plan.par_plan
+        m = plan.meta
+        N, S, K, L = m["N"], m["S"], m["K"], m["S_ext"]
+        angles = torch.tensor(plan.geom.angles).rad2deg()
+        signs = {g: (getattr(plan, f"pair_sgn_{g}"), getattr(plan, f"pair_msk_{g}"))
+                 for g in "xy"}
+        n_plus = {g: int(((s > 0) & (k > 0)).sum()) for g, (s, k) in signs.items()}
+        n_minus = {g: int((s < 0).sum()) for g, (s, _) in signs.items()}
+        n_single = {g: int((k == 0).sum()) for g, (_, k) in signs.items()}
+        print(f"[chip_smoke] fan backing plan ({label}): {len(angles)} angles from "
+              f"{float(angles.min()):.2f} to {float(angles.max()):.2f} deg, N={N} S={S} K={K} "
+              f"L={L} A_x={m['A_x']} A_y={m['A_y']} P_x={m['P_x']} P_y={m['P_y']}; pairs of "
+              f"sign +1 {n_plus}, sign -1 {n_minus}, unpaired {n_single}")
+        check(m["use_pairs"] and sum(n_plus.values()) > 0,
+              f"fan {label} plan: expected a paired plan with sign +1 pairs")
+        P = (m["P_x"] + m["P_y"]) / 2  # the mean group call's pairs (both 30, or 120)
+        tabs = pair_tables(ck, plan)
+        table_mb = {str(c).split(".")[1]: sum(t.numel() * t.element_size() for g in "xy"
+                                            for t in (tabs[c][g] if isinstance(tabs[c][g], tuple)
+                                                      else (tabs[c][g],))) / 1e6
+                    for c in tabs}
+        st = out[label] = {"P": P, "S": S, "K": K, "n_angles": len(angles),
+                           "pairs_sign_plus": n_plus, "pairs_sign_minus": n_minus,
+                           "unpaired": n_single, "table_mb": table_mb}
+        for B_ in (4, 128):
+            f_ = torch.randn(B_, N, N, generator=gen, device=dev)
+            p_ = {g: torch.randn(B_, 2 * m[f"P_{g}"], S, generator=gen, device=dev)
+                  for g in "xy"}
+            fwd_, adj_ = pair_calls(ck, plan, tabs, f_, p_)
+            kernels = {"project_pair_group": (fwd_, ck.project_pair_group,
+                                              ck._project_pair_group),
+                       "backproject_pair_group": (adj_, ck.backproject_pair_group,
+                                                  ck._backproject_pair_group)}
+            errs = {}
+            check_kernels({f"{k} fan {label} B={B_}": v for k, v in kernels.items()}, errs)
+            # only the sign +1 pairs: the forward's rows of those pairs, and
+            # the adjoint with every other row of its input zeroed
+            rows = {g: torch.stack([2 * torch.nonzero((s > 0) & (k > 0))[:, 0],
+                                    2 * torch.nonzero((s > 0) & (k > 0))[:, 0] + 1], 1)
+                    .flatten() for g, (s, k) in signs.items()}
+            p_plus = {g: torch.zeros_like(p_[g]).index_copy_(1, rows[g],
+                                                             p_[g].index_select(1, rows[g]))
+                      for g in "xy"}
+            _, adj_plus = pair_calls(ck, plan, tabs, f_, p_plus)
+            for cdt in (f32, bf16):
+                tname = str(cdt).split(".")[1]
+                for g in "xy":
+                    yk = fwd_(g, cdt, ck.project_pair_group).index_select(1, rows[g])
+                    yp = fwd_(g, cdt, ck._project_pair_group).index_select(1, rows[g])
+                    xk = adj_plus(g, cdt, ck.backproject_pair_group)
+                    xp = adj_plus(g, cdt, ck._backproject_pair_group)
+                    r_f, r_a = rel(yk, yp), rel(xk, xp)
+                    print(f"[check] fan {label} B={B_} {tname} group {g}, sign +1 pairs only "
+                          f"({n_plus[g]}): forward rel {r_f:.3e}, adjoint rel {r_a:.3e} "
+                          f"(tol {TOL[tname]:.0e})")
+                    check(r_f <= TOL[tname] and r_a <= TOL[tname],
+                          f"fan {label} {tname} {g}: sign +1 pairs {r_f} / {r_a}")
+                    st.setdefault(f"sign_plus_rel_{tname}", []).append(max(r_f, r_a))
+            cost = pair_cost(B_, N, P, K, S)
+            stage1 = 4 * B_ * P * N * N * K
+            Tm = torch.randn(m["P_x"], N, 2 * K, generator=gen, device=dev)
+            Fm = f_.reshape(1, B_ * N, N).expand(m["P_x"], B_ * N, N).contiguous()
+            mm = {bf16: device_ms(lambda: torch.matmul(Fm.to(bf16), Tm.to(bf16)), 5),
+                  f32: device_ms(lambda: torch.matmul(Fm, Tm), 5)}
+            del Fm, Tm
+            for op, (call, kern, plain) in kernels.items():
+                for cdt in (bf16, f32):
+                    tname = str(cdt).split(".")[1]
+                    ms = sum(device_ms(lambda g=g: call(g, cdt, kern), 5) for g in "xy") / 2
+                    plain_ms = cuda_ms(lambda: (call("x", cdt, plain), call("y", cdt, plain)),
+                                       iters=2, warmup=1) / 2
+                    bound, by = (bound_ms(*cost, "bfloat16") if cdt == bf16
+                                 else split_bound_ms(cost, stage1))
+                    e = errs[(f"{op} fan {label} B={B_}", tname)]
+                    st[f"{op}_{tname}_b{B_}"] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "stage1_matmul_ms": mm[cdt], "max_abs_err": e[0], "rel_err": e[1]}
+                    print(f"[time] {op} {tname} on the fan {label} plan at B={B_}: {ms:.4f} ms "
+                          f"per group call, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                          f"{cost[0] / 1e9:.3f} GFLOP, {cost[1] / 1e6:.3f} MB), {bound / ms:.3f} "
+                          f"of the bound, torch.matmul of stage 1's shape ({m['P_x']} x [{B_ * N}x{N}] "
+                          f"@ [{N}x{2 * K}], {tname}) {mm[cdt]:.4f} ms ({card})")
+            del f_, p_, p_plus
+            torch.cuda.empty_cache()
+        # the fan operators' f32 dot test (split route): y = A x + noise
+        x = torch.randn(4, N, N, generator=gen, device=dev)
+        ax = ops.A(x)
+        y = torch.randn(ax.shape, generator=gen, device=dev)
+        y = ax + y * (ax.norm() / y.norm())
+        lhs = torch.vdot(ax.double().flatten(), y.double().flatten())
+        rhs = torch.vdot(x.double().flatten(), ops.At(y).double().flatten())
+        st["fan_dot_rel"] = float(abs(lhs - rhs) / abs(lhs))
+        print(f"[check] fan operators ({label}, float32, split route, B=4): <Ax,y> vs "
+              f"<x,A^T y> rel {st['fan_dot_rel']:.3e} (tol 1e-5)")
+        check(st["fan_dot_rel"] < 1e-5, f"fan {label} dot test: {st['fan_dot_rel']}")
+        # what the rebinning products add: a whole fan A / A† against its
+        # backing-plan call alone, bf16 operators at bench's batch
+        ops16 = make_fan_ops(geom, dtype=bf16, device=dev)
+        x = torch.randn(128, N, N, generator=gen, device=dev)
+        y = ops16.A(x)
+        p_par = torch.randn(128, len(angles), S, generator=gen, device=dev)
+        st["rebin_b128_ms"] = {
+            "fan_A": device_ms(lambda: ops16.A(x), 5),
+            "backing_project": device_ms(lambda: parallel_project(ops16.plan.par_plan, x), 5),
+            "fan_At": device_ms(lambda: ops16.At(y), 5),
+            "backing_backproject": device_ms(
+                lambda: parallel_backproject(ops16.plan.par_plan, p_par), 5)}
+        print(f"[time] fan {label} bf16 operators at B=128, ms: {st['rebin_b128_ms']} "
+              f"(the difference is the rebinning) ({card})")
+        del ops, ops16, plan, tabs, x, y, p_par
+        torch.cuda.empty_cache()
+    return out
+
+
+def radial_dense_phase(dev, card, gen):
+    """Phase 16a: rows 3-4 on sino_unet_radial's dense 512-spoke plan
+    (A_x = A_y = 256, S = 1024, K = 256), split f32 route: tables bit-equal
+    to the plain builder's and their size, both kernels against their plain
+    f32 versions at B' = 8 (batch 4) and 128 (batch 64; the plain version
+    run over batch chunks), and device times per group call beside the
+    split bound, the plain version and a full-f32 torch.matmul of stage 1's
+    shape."""
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.ops.nufft.fourier_slice import build_fs_plan
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.training.tasks import build_geometries
+
+    f32 = torch.float32
+    dense, _ = build_geometries(get_preset("sino_unet_radial").geometry)
+    plan = build_fs_plan(dense, dtype=f32, device=dev).par_plan
+    m = plan.meta
+    N, S, K, L = m["N"], m["S"], m["K"], m["S_ext"]
+    A = (m["A_x"] + m["A_y"]) / 2  # the mean group call's angles (both 256)
+    print(f"[chip_smoke] dense radial plan (sino_unet_radial): N={N} S={S} K={K} L={L} "
+          f"A_x={m['A_x']} A_y={m['A_y']} use_pairs={m['use_pairs']}")
+    check(not m["use_pairs"], "the dense radial plan must not pair its spokes")
+    args = {g: (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec, L)
+            for g in "xy"}
+    tabs = {f32: check_tables(ck.build_group_split_tables, ck._group_split_tables, args)}
+    table_mb = {g: sum(t.numel() * t.element_size() for t in tabs[f32][g]) / 1e6 for g in "xy"}
+    print(f"[chip_smoke] dense radial split tables (T̂ hi/lo bf16 + φ f32): {table_mb} MB "
+          f"per group")
+    out = {"A": A, "table_mb_per_group": table_mb}
+    for B_ in (8, 128):
+        f_ = torch.randn(B_, N, N, generator=gen, device=dev)
+        p_ = {g: torch.randn(B_, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"}
+        fwd_, adj_ = group_calls(ck, plan, tabs, f_, p_)
+        kernels = {"project_group": (fwd_, ck.project_group, _chunked(ck._project_group, 8)),
+                   "backproject_group": (adj_, ck.backproject_group,
+                                         _chunked(ck._backproject_group, 8))}
+        errs = {}
+        check_kernels({f"{k} dense radial B'={B_}": v for k, v in kernels.items()}, errs,
+                      dtypes=(f32,))
+        cost = group_cost(B_, N, A, K, S)
+        bound, by = split_bound_ms(cost, 4 * B_ * A * N * N * K)
+        # every angle multiplies the same image rows: 32 angles per matmul
+        Fc = f_.reshape(1, B_ * N, N).expand(32, B_ * N, N).contiguous()
+        Tm = torch.randn(m["A_x"], N, 2 * K, generator=gen, device=dev)
+        mm = device_ms(lambda: [torch.matmul(Fc[:len(Tm[i:i + 32])], Tm[i:i + 32])
+                                for i in range(0, len(Tm), 32)], 3)
+        del Fc, Tm
+        for op, (call, kern, plain) in kernels.items():
+            ms = sum(device_ms(lambda g=g: call(g, f32, kern), 5) for g in "xy") / 2
+            plain_ms = cuda_ms(lambda: (call("x", f32, plain), call("y", f32, plain)),
+                               iters=1, warmup=1) / 2
+            e = errs[(f"{op} dense radial B'={B_}", "float32")]
+            out[f"{op}_b{B_}"] = {"ms": ms, "plain_ms": plain_ms, "plain": "batch chunks of 8",
+                                  "bound_ms": bound, "bound_by": by, "stage1_matmul_f32_ms": mm,
+                                  "max_abs_err": e[0], "rel_err": e[1]}
+            print(f"[time] {op} float32 (split) on the dense radial plan at B'={B_}: {ms:.4f} ms "
+                  f"per group call, plain (chunks of 8) {plain_ms:.4f} ms, split bound "
+                  f"{bound:.4f} ms ({by}; {cost[0] / 1e9:.3f} GFLOP, {cost[1] / 1e6:.3f} MB), "
+                  f"{bound / ms:.3f} of the bound, full-f32 torch.matmul of stage 1's shape "
+                  f"({m['A_x']} x [{B_ * N}x{N}] @ [{N}x{2 * K}]) {mm:.4f} ms ({card})")
+        del f_, p_
+        torch.cuda.empty_cache()
+    del tabs, plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def preset_path_phase(name, dev, card, counts_fn, want, radial, small_over, golden_over):
+    """Phases 15b / 16b: one preset at full width. The serving path
+    (build_task → make_batch → batch_from_images → recon_fn → PSNR/SSIM,
+    random weights from a seed) with its launch counts from 0 before
+    build_task against ``want`` (SLICE_C_LAUNCHES; ``counts_fn`` reads the
+    route counts of the kernels it runs) and no launch of any other kernel;
+    recon time and profile at the preset's batch; a cut-down f32 task on
+    card and CPU; a few train() steps (finite losses, every parameter moved,
+    whole-run counts), one step's launches after a warm one, its time,
+    split, idle share and peak memory; bench --preset-recon at MATRIX_BATCH
+    with device time by kind; the golden-size run (the port's draws)
+    against its untrained eval, beside tests/goldens.json."""
+    import io
+
+    import numpy as np
+
+    from pdunet_tpu_torch import bench
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.data.synth import random_phantom_batch
+    from pdunet_tpu_torch.ops.metrics import psnr, ssim
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+    from pdunet_tpu_torch.training import loop
+    from pdunet_tpu_torch.training.tasks import build_task
+
+    config = get_preset(name)
+    B = config.train.batch_size
+    N = config.geometry.image_size
+    fan = config.geometry.kind == "fan"
+    tables = ((lambda: (ck.build_group_tables.launches, ck.build_group_split_tables.launches))
+              if radial else
+              (lambda: (ck.build_pair_tables.launches, ck.build_pair_split_tables.launches)))
+    want_tables = (0, 2) if radial else (2, 2)
+    st = {"batch": B}
+
+    # -- serving at full width, counts from 0 before build_task ---------------
+    ck.reset_launch_counts()
+    pk.reset_launch_counts()
+    with counting_band_builds() as bands:
+        t0 = time.perf_counter()
+        task = build_task(config, device=dev)
+        torch.cuda.synchronize()
+        at_build = counts_fn(ck)
+        bands_build = len(bands)
+        print(f"[chip_smoke] build_task({name}) on {dev}: {time.perf_counter() - t0:.2f} s, "
+              f"sigma {task.sigma}, launches {at_build}, band builds {bands_build}")
+        check(at_build == want["build"], f"{name}: build_task launches {at_build}, "
+              f"expected {want['build']}")
+        task.init_params(torch.Generator().manual_seed(0))
+        task.model.eval()
+        n_batches = 2
+        data_gen = torch.Generator(device=dev).manual_seed(1234)
+        with torch.inference_mode():
+            for i in range(n_batches):
+                clean = task.make_batch(data_gen)
+                batch = task.batch_from_images(clean.get("image_c", clean["image"]))
+                recon = task.recon_fn(task.model, batch)
+                ps, ss = psnr(recon, batch["image"]), ssim(recon, batch["image"])
+                check(recon.shape == (B, N, N) and recon.dtype == torch.float32
+                      and bool(torch.isfinite(recon).all()), f"{name}: recon {recon.shape}")
+                check(bool(torch.isfinite(ps).all() and torch.isfinite(ss).all()),
+                      f"{name}: non-finite metrics")
+                print(f"[recon] {name} batch {i}: PSNR {[round(v, 3) for v in ps.tolist()]} "
+                      f"SSIM {[round(v, 4) for v in ss.tolist()]}")
+        torch.cuda.synchronize()
+        bands_serve = len(bands)
+    served = counts_fn(ck)
+    expect = _plus(want["build"], _times(n_batches, _plus(want["synth"], want["synth"],
+                                                          want["recon"])))
+    print(f"[chip_smoke] {name} serving launches (fwd bf16, fwd split, adj bf16, adj split) "
+          f"after {n_batches} batches: {served}, expected {expect}; tables built (bf16, split) "
+          f"{tables()}; fan band builds {bands_build} in build_task, {bands_serve} in all")
+    check(served == expect, f"{name}: serving launches {served}, expected {expect}")
+    check(tables() == want_tables, f"{name}: trig tables {tables()}, expected {want_tables}")
+    if fan:
+        check((bands_build, bands_serve) == (FAN_BAND_BUILDS["build"], FAN_BAND_BUILDS["serve"]),
+              f"{name}: band builds {bands_build} / {bands_serve}, expected {FAN_BAND_BUILDS}")
+    check(_other_launches(ck, pk, radial=radial) == 0,
+          f"{name}: a CUDA-core, other-family or probe kernel ran on the serving path")
+    st.update(serve_launches=served, band_builds=bands_serve)
+
+    def one_recon():
+        with torch.inference_mode():
+            task.recon_fn(task.model, batch)
+
+    st["recon_ms"] = recon_rate(one_recon, B, card, name) * 1e3
+    st["recon_profile"] = profile_recon(one_recon, card)
+
+    # -- a cut-down f32 task, card against CPU ----------------------------------
+    small = config.override({"geometry.image_size": 32, "geometry.n_angles": 40,
+                             "model.base_features": 8, "model.depth": 2, "model.n_iters": 2,
+                             "model.use_bfloat16": False, "train.batch_size": 2, **small_over})
+    x0 = np.random.default_rng(0).standard_normal((32, 32))
+    recons = []
+    for d in (dev, torch.device("cpu")):
+        t_small = build_task(small, device=d, opnorm_x0=x0)
+        with torch.inference_mode():
+            im = random_phantom_batch(torch.Generator().manual_seed(7), 2, 32,
+                                      device="cpu").to(d)
+            recons.append(t_small.recon_fn(t_small.model, t_small.batch_from_images(im)).cpu())
+    st["small_f32_card_vs_cpu"] = rel(recons[0], recons[1])
+    print(f"[check] {name} small f32 task recon, card vs CPU: rel "
+          f"{st['small_f32_card_vs_cpu']:.3e} (tol 1e-4)")
+    check(st["small_f32_card_vs_cpu"] < 1e-4, f"{name}: small recon card vs CPU")
+    del task, batch, recon
+    torch.cuda.empty_cache()
+
+    # -- training at full width at the preset's batch -----------------------------
+    n_steps = 3
+    tconfig = config.override({"train.log_every": 1})
+    ck.reset_launch_counts()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = loop.train(tconfig, steps=n_steps, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ran = counts_fn(ck)
+    n_val = -(-tconfig.train.val_slices // B)
+    losses = [h["loss"] for h in res.history]
+    norms = [h["grad_norm"] for h in res.history]
+    aux = {k: [h[k] for h in res.history] for k in ("sino_loss", "img_loss")
+           if k in res.history[0]}
+    print(f"[train] {name} train({n_steps} steps, batch {B}) on the card: {run_s:.2f} s "
+          f"with build_task and {n_val} val batches; losses {losses} {aux}, grad norms "
+          f"{norms}, final eval {res.final_eval}; launches {ran}")
+    check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
+          f"{name}: non-finite loss {losses}")
+    check(all(math.isfinite(v) and v > 0 for v in norms), f"{name}: grad norms {norms}")
+    check(set(aux) == ({"sino_loss", "img_loss"} if name == "sino_unet_radial" else set()),
+          f"{name}: aux terms {sorted(aux)} in the metrics")
+    trained = [q.detach().clone() for q in res.task.model.parameters()]
+    res.task.init_params(torch.Generator().manual_seed(
+        loop.derive_seed(config.train.seed, loop.INIT_STREAM)))
+    still = [n for (n, q), t in zip(res.task.model.named_parameters(), trained)
+             if torch.equal(q.detach(), t)]
+    check(not still, f"{name}: parameters that did not move: {still[:5]}")
+    expect = _plus(want["build"], _times(n_steps, want["step"]),
+                   _times(n_val, _plus(want["synth"], want["recon"])))
+    check(ran == expect, f"{name} train(): launches {ran}, expected {expect}")
+    check(_other_launches(ck, pk, radial=radial) == 0,
+          f"{name}: a CUDA-core, other-family or probe kernel ran in train()")
+    task = res.task
+    state = loop.build_state(task, n_steps=100)
+    step = loop.make_train_step(task)
+    data = torch.Generator(device=dev)
+    step(state, data.manual_seed(0))
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    n_counted = 2
+    with counting_band_builds() as bands:
+        for i in range(n_counted):
+            step(state, data.manual_seed(1 + i))
+        torch.cuda.synchronize()
+    per_step = _times(1 / n_counted, counts_fn(ck))
+    print(f"[train] {name} launches per train step after a warm one (fwd bf16, fwd split, adj "
+          f"bf16, adj split): {per_step}, expected {want['step']}; band builds {len(bands)}")
+    check(per_step == want["step"], f"{name}: per-step launches {per_step}")
+    check(sum(tables()) == 0 and not bands, f"{name}: tables or bands rebuilt in a step")
+    st.update(train_steps=n_steps, losses=losses, grad_norms=norms, aux=aux,
+              launches_per_step=dict(zip(("fwd_tc", "fwd_split", "adj_tc", "adj_split"),
+                                         per_step)),
+              **step_timings(step, state, data, B, name, card, reps=5))
+    del res, task, state, step
+    torch.cuda.empty_cache()
+
+    # -- bench --preset-recon at the matrix batch, by kind -----------------------
+    b = bench.MATRIX_BATCH[name]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--preset-recon", name, "--batch", str(b)])
+    row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(json.dumps(row))
+    check(rc == 0 and row["preset"] == name and row["recon_slices_per_sec"] > 0,
+          f"{name}: bench row {row}")
+    big = build_task(config.override({"train.batch_size": b}), device=dev)
+    big.model.eval()
+    with torch.inference_mode():
+        bb = big.make_batch(torch.Generator(device=dev).manual_seed(0))
+    st["bench_row"] = row
+
+    def big_recon():
+        with torch.inference_mode():
+            big.recon_fn(big.model, bb)
+
+    st["bench_profile"] = profile_recon(big_recon, card, reps=2, label=f"recons at batch {b}")
+    del big, bb
+    torch.cuda.empty_cache()
+
+    # -- the golden-size run ------------------------------------------------------------
+    golden = json.loads((REPO / "tests" / "goldens.json").read_text())
+    over = {"geometry.image_size": 32, "geometry.n_angles": 40, "geometry.sparsity": 4,
+            "model.base_features": 8, "model.depth": 1, "model.n_iters": 2,
+            "train.batch_size": 2, "train.learning_rate": 2e-3, "train.warmup_steps": 10,
+            "train.steps": 100, "train.log_every": 50, "train.eval_every": 1000,
+            "train.seed": 0, "train.n_ellipses": 4, **golden_over}
+    gconfig = get_preset(name).override(over)
+    untrained = loop.train(gconfig, steps=0, device=dev, verbose=False).final_eval
+    t0 = time.perf_counter()
+    fin = loop.train(gconfig, device=dev, verbose=False).final_eval
+    run_s = time.perf_counter() - t0
+    print(f"[train] {name} golden-size run (100 steps, the port's draws): final eval PSNR "
+          f"{fin['psnr']:.3f} dB SSIM {fin['ssim']:.4f}, untrained {untrained['psnr']:.3f} / "
+          f"{untrained['ssim']:.4f}; tests/goldens.json (JAX's draws, not gated) "
+          f"{golden[name]}; {run_s:.2f} s")
+    check(fin["psnr"] > untrained["psnr"] and fin["ssim"] > untrained["ssim"],
+          f"{name}: training did not improve the eval ({untrained} -> {fin})")
+    st["golden"] = {"final": fin, "untrained": untrained, "goldens_json": golden[name],
+                    "run_s": run_s}
+    return st
+
+
+def slice_c_phases(dev, card, gen):
+    """Phases 15-16: pdunet_fan (15a the pair kernels on its backing plans,
+    15b the preset) and sino_unet_radial (16a the per-angle split kernels on
+    its dense 512-spoke plan, 16b the preset)."""
+    return {
+        "fan_plans": fan_plan_phase(dev, card, gen),
+        "pdunet_fan": preset_path_phase(
+            "pdunet_fan", dev, card, _pair_route_counts, SLICE_C_LAUNCHES["pdunet_fan"],
+            radial=False, small_over={}, golden_over={}),
+        "radial_dense_plan": radial_dense_phase(dev, card, gen),
+        "sino_unet_radial": preset_path_phase(
+            "sino_unet_radial", dev, card, _group_route_counts,
+            SLICE_C_LAUNCHES["sino_unet_radial"], radial=True,
+            small_over={"geometry.samples_per_spoke": 48},
+            golden_over={"geometry.samples_per_spoke": 48}),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2334,6 +2850,8 @@ def main():
     elapsed("phase 14a (dense plan)")
     slice_b = slice_b_phases(dev, card)
     elapsed("phases 14b-f (slice B presets)")
+    slice_c = slice_c_phases(dev, card, gen)
+    elapsed("phases 15-16 (pdunet_fan, sino_unet_radial)")
     for e in entries + radial_entries:
         preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
                   "pdunet_parallel", "project_group": "pdunet_radial",
@@ -2356,6 +2874,27 @@ def main():
                 for name, st in slice_b.items()}
             e["dense_plan_split"] = {k: v for k, v in dense.items()
                                      if k.startswith(e["name"])}
+            # pdunet_fan (phase 15): its path's counts from 0, and both
+            # routes on its sparse and dense backing plans (phase 15a)
+            st = slice_c["pdunet_fan"]
+            e["launches_pdunet_fan"] = {
+                "serve_tc": st["serve_launches"][i], "serve_split": st["serve_launches"][i + 1],
+                "train_step_tc": st["launches_per_step"]["fwd_tc" if i == 0 else "adj_tc"],
+                "train_step_split": st["launches_per_step"][
+                    "fwd_split" if i == 0 else "adj_split"]}
+            e["fan_plans"] = {plan: {k: v for k, v in fp.items() if k.startswith(e["name"])}
+                              for plan, fp in slice_c["fan_plans"].items()}
+        if e["name"] in ("project_group", "backproject_group"):
+            # sino_unet_radial (phase 16): its path's counts from 0, and the
+            # split route on its dense 512-spoke plan (phase 16a)
+            i = 0 if e["name"].startswith("project") else 2
+            st = slice_c["sino_unet_radial"]
+            e["launches_sino_unet_radial"] = {
+                "serve_split": st["serve_launches"][i + 1],
+                "train_step_split": st["launches_per_step"][
+                    "fwd_split" if i == 0 else "adj_split"]}
+            e["dense_radial_split"] = {k: v for k, v in slice_c["radial_dense_plan"].items()
+                                       if k.startswith(e["name"])}
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2370,6 +2909,7 @@ def main():
                       "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
+                      "slice_c": slice_c,
                       "build_s": build_s, "phase_s": phase_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

@@ -13,6 +13,8 @@ about an H100.
     python -m pdunet_tpu_torch.bench --train-scan     # + the train step's batch ladder
     python -m pdunet_tpu_torch.bench --preset-recon pdunet_radial --batch 128
     python -m pdunet_tpu_torch.bench --preset-recon lpd_parallel --batch 256
+    python -m pdunet_tpu_torch.bench --preset-recon pdunet_fan --batch 128
+    python -m pdunet_tpu_torch.bench --preset-recon sino_unet_radial --batch 64
     python -m pdunet_tpu_torch.bench --unet-scan      # UNet variants and parts → unet_scan.json
     python -m pdunet_tpu_torch.bench --device cpu --batch 2 --image-size 32 --n-iters 2
 
@@ -25,11 +27,9 @@ batch without remat, then 2×, 4× and 8× with remat, stopping at the first
 batch that runs out of card memory. ``--unet-scan`` times the UNet's
 stem x upsample variants and its per-level parts at the flagship
 ``fbp_unet`` shape and writes them to ``unet_scan.json`` in the working
-directory. Ported presets: ``pdunet_parallel``, ``pdunet_radial``,
-``fbp_unet_parallel``, ``sino_unet_parallel`` and ``lpd_parallel``; the
-others wait for later slices (ROADMAP.md) and raise
-``NotImplementedError``. Rows carry no test PSNR/SSIM: the JAX harness
-reads those from artifacts of checkpoints trained on a TPU.
+directory. Every preset runs (``--matrix`` benches all seven at
+``MATRIX_BATCH``). Rows carry no test PSNR/SSIM: the JAX harness reads
+those from artifacts of checkpoints trained on a TPU.
 """
 
 from __future__ import annotations
@@ -57,22 +57,18 @@ from pdunet_tpu_torch.utils import watchdog
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the roofline
 H100_BF16_PEAK = 989e12
 
-#: the batch each ported preset's end-to-end recon is benchmarked at
-#: (--matrix), the JAX harness's saturating batches
+#: the batch each preset's end-to-end recon is benchmarked at (--matrix),
+#: the JAX harness's saturating batches
 MATRIX_BATCH = {"pdunet_parallel": 256, "fbp_unet_parallel": 256, "sino_unet_parallel": 128,
-                "lpd_parallel": 256, "pdunet_radial": 128}
-
-#: presets not ported yet → the ROADMAP.md slice that ports them
-_UNPORTED = {
-    "pdunet_fan": "slice C (item 12)",
-    "sino_unet_radial": "slice D (item 15)",
-}
+                "lpd_parallel": 256, "pdunet_fan": 128, "pdunet_radial": 128,
+                "sino_unet_radial": 64}
 
 #: shortest timed window: enough calls that event and launch jitter (µs) vanish
 _MIN_WINDOW_S = 0.1
 
 #: which batch entry of each model kind the timed call takes as its argument
-#: (the JAX harness's loop carry; the other entries stay fixed)
+#: (the JAX harness's loop carry; the other entries stay fixed); the radial
+#: sino_unet's is "k_in_w"
 _CARRY_KEY = {"pdunet": "f0", "lpd": "f0", "fbp_unet": "fbp", "sino_unet": "sino_in"}
 
 
@@ -130,13 +126,10 @@ def device_kind(device) -> str:
 def bench_preset_recon(name: str, batch_size: int, stem: int | None = None,
                        image_size: int | None = None, n_angles: int | None = None,
                        sparsity: int | None = None, device="cuda") -> dict:
-    """End-to-end recon throughput of one ported preset at its config
-    (dtype, stem, n_iters as shipped), with random weights from seed 0.
-    ``stem`` overrides the model's space-to-depth stem; ``image_size`` /
+    """End-to-end recon throughput of one preset at its config (dtype, stem,
+    n_iters as shipped), with random weights from seed 0. ``stem``
+    overrides the model's space-to-depth stem; ``image_size`` /
     ``n_angles`` / ``sparsity`` override the geometry (--scale-scan)."""
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"preset {name!r} is not ported yet (ROADMAP.md {_UNPORTED[name]})")
     config = get_preset(name)
     config = dataclasses.replace(
         config, train=dataclasses.replace(config.train, batch_size=batch_size))
@@ -151,7 +144,8 @@ def bench_preset_recon(name: str, batch_size: int, stem: int | None = None,
     watchdog.beat()
     with torch.inference_mode():
         batch = task.make_batch(torch.Generator(device=device).manual_seed(0))
-    carry_key = _CARRY_KEY[config.model.kind]
+    radial_sino = config.model.kind == "sino_unet" and config.geometry.kind == "radial"
+    carry_key = "k_in_w" if radial_sino else _CARRY_KEY[config.model.kind]
     carry0 = batch.pop(carry_key)
     task.model.eval()
 
@@ -378,7 +372,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--all", action="store_true", help="also run secondary benches")
     p.add_argument("--matrix", action="store_true",
-                   help="with --all: bench every ported preset end-to-end")
+                   help="with --all: bench every preset end-to-end")
     p.add_argument("--train-scan", action="store_true",
                    help="with --all: the train step's batch ladder (remat above the "
                         "first rung)")

@@ -18,7 +18,9 @@ prim_b = ±prim_a share stage 1 (member b reuses ĝ conjugated when the sign
 is −1, with the constant C = 2(M + c_s) folded into its shift row ``shb``).
 A uniform [0, π) scan pairs θ with π − θ, so ``meta["use_pairs"]`` is true
 and A/A† run through the mirror-pair kernels; an angle set that does not
-pair (golden-angle spokes) runs through the per-angle kernels.
+pair (golden-angle spokes) runs through the per-angle kernels. A fan
+scan's backing plan spans angles beyond [0, π) (negative ones too) and
+pairs θ with −θ or 2π − θ as well (sign +1: member b reuses ĝ as it is).
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["GOLDEN_ANGLE", "ParallelGeometry", "ParallelPlan", "RadialGeometry",
-           "build_parallel_plan"]
+__all__ = ["GOLDEN_ANGLE", "FanGeometry", "ParallelGeometry", "ParallelPlan",
+           "RadialGeometry", "build_parallel_plan"]
 
 
 def _uniform_angles(n_angles: int, angle_range: float, start: float) -> Tuple[float, ...]:
@@ -68,6 +70,49 @@ class ParallelGeometry:
 
     def subsample(self, factor: int) -> "ParallelGeometry":
         """Sparse-view geometry keeping every ``factor``-th angle."""
+        return dataclasses.replace(self, angles=self.angles[::factor], n_angles=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class FanGeometry:
+    """Fan-beam CT geometry with a flat detector.
+
+    ``source_distance`` is source → isocentre, ``det_distance`` isocentre →
+    detector. Angles default to ``n_angles`` uniformly spaced over [0, 2π);
+    ``angles`` overrides for sparse-view or limited-angle scans. The fan
+    operators (``ops/radon/fan.py``) rebin onto a parallel plan over an
+    extended angle grid, so its backing angles may lie outside [0, π).
+    """
+
+    image_size: int
+    n_angles: int = 0
+    source_distance: float = 0.0   # 0 → 2 * image_size
+    det_distance: float = 0.0      # 0 → source_distance
+    det_count: int = 0             # 0 → 2 * image_size
+    det_spacing: float = 0.0       # 0 → magnification × pixel_spacing
+    pixel_spacing: float = 1.0
+    angles: Tuple[float, ...] = ()
+
+    def __post_init__(self):
+        if not self.angles:
+            if self.n_angles <= 0:
+                raise ValueError("need n_angles > 0 or explicit angles")
+            object.__setattr__(
+                self, "angles", _uniform_angles(self.n_angles, 2.0 * math.pi, 0.0)
+            )
+        object.__setattr__(self, "n_angles", len(self.angles))
+        if self.source_distance <= 0:
+            object.__setattr__(self, "source_distance", 2.0 * self.image_size)
+        if self.det_distance <= 0:
+            object.__setattr__(self, "det_distance", self.source_distance)
+        if self.det_count <= 0:
+            object.__setattr__(self, "det_count", 2 * self.image_size)
+        if self.det_spacing <= 0:
+            mag = (self.source_distance + self.det_distance) / self.source_distance
+            object.__setattr__(self, "det_spacing", mag * self.pixel_spacing)
+
+    def subsample(self, factor: int) -> "FanGeometry":
+        """Sparse-view geometry keeping every ``factor``-th view."""
         return dataclasses.replace(self, angles=self.angles[::factor], n_angles=0)
 
 

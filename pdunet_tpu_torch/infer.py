@@ -11,6 +11,8 @@ Usage:
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --n-slices 32
   python -m pdunet_tpu_torch.infer --preset pdunet_radial --n-slices 32
   python -m pdunet_tpu_torch.infer --preset lpd_parallel --n-slices 32
+  python -m pdunet_tpu_torch.infer --preset pdunet_fan --n-slices 32
+  python -m pdunet_tpu_torch.infer --preset sino_unet_radial --n-slices 32
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --ckpt-dir runs/pd --ckpt best
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --device cpu \\
       --set geometry.image_size=32 --json-out metrics.json
@@ -35,9 +37,9 @@ from pdunet_tpu_torch.training.loop import build_state
 from pdunet_tpu_torch.training.tasks import build_task
 
 
-#: presets the port runs (the others raise NotImplementedError in build_task)
+#: presets the port runs: all seven
 PORTED = ("pdunet_parallel", "pdunet_radial", "fbp_unet_parallel", "sino_unet_parallel",
-          "lpd_parallel")
+          "lpd_parallel", "pdunet_fan", "sino_unet_radial")
 
 
 def parse_args(argv=None):

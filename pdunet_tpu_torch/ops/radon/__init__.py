@@ -1,3 +1,11 @@
+from pdunet_tpu_torch.ops.radon.fan import (
+    FanPlan,
+    build_fan_plan,
+    fan_backproject,
+    fan_project,
+    fan_rebin_to_parallel,
+    make_fan_ops,
+)
 from pdunet_tpu_torch.ops.radon.filtering import filter_sinogram, ramp_kernel
 from pdunet_tpu_torch.ops.radon.parallel import (
     RadonOps,
@@ -7,7 +15,13 @@ from pdunet_tpu_torch.ops.radon.parallel import (
 )
 
 __all__ = [
+    "FanPlan",
     "RadonOps",
+    "build_fan_plan",
+    "fan_backproject",
+    "fan_project",
+    "fan_rebin_to_parallel",
+    "make_fan_ops",
     "filter_sinogram",
     "make_parallel_ops",
     "parallel_backproject",

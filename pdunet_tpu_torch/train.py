@@ -4,11 +4,13 @@ Usage:
   python -m pdunet_tpu_torch.train --preset pdunet_parallel --steps 2000
   python -m pdunet_tpu_torch.train --preset pdunet_radial --ckpt-dir runs/rad --resume auto
   python -m pdunet_tpu_torch.train --preset sino_unet_parallel --steps 20 --metrics m.jsonl
+  python -m pdunet_tpu_torch.train --preset pdunet_fan --steps 20 --ckpt-dir runs/fan
   python -m pdunet_tpu_torch.train --preset pdunet_parallel --device cpu --steps 20 \\
       --set geometry.image_size=32 --set model.base_features=8
 
-Ported presets: ``pdunet_parallel``, ``pdunet_radial``, ``fbp_unet_parallel``,
-``sino_unet_parallel`` and ``lpd_parallel``; any config field
+Ported presets: all seven (``pdunet_parallel``, ``pdunet_radial``,
+``fbp_unet_parallel``, ``sino_unet_parallel``, ``lpd_parallel``,
+``pdunet_fan``, ``sino_unet_radial``); any config field
 can be overridden with ``--set section.field=value``. Training runs on the
 card (``--device cuda``) unless ``--device cpu`` is asked for. File-backed
 training (``--data``), the device meshes (``--devices``,
@@ -44,7 +46,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", help="preset name (pdunet_parallel, pdunet_radial, "
-                   "fbp_unet_parallel, sino_unet_parallel, lpd_parallel)")
+                   "fbp_unet_parallel, sino_unet_parallel, lpd_parallel, pdunet_fan, "
+                   "sino_unet_radial)")
     p.add_argument("--config", help="path to an ExperimentConfig JSON")
     p.add_argument("--steps", type=int, default=None, help="override train.steps")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",

@@ -21,8 +21,12 @@ validation keys and folds the step index into the data key. Here
 numpy's ``SeedSequence`` into the seed of a fresh ``torch.Generator``:
 stream 1 draws the initial weights (on the CPU, so a seed gives the same
 weights on every device), stream 2 step ``i``'s batch (seed ``(tc.seed, 2,
-i)``), stream 3 validation batch ``j`` (``(tc.seed, 3, j)``). A resumed run
-therefore replays the same batches, and ``fixed_data`` reuses step 0's.
+i)``), stream 3 validation batch ``j`` (``(tc.seed, 3, j)``). A noisy
+preset (``photons_per_ray`` or ``kspace_snr_db`` > 0) draws its noise from
+the same generator after the phantoms, in training and validation batches
+alike, as the JAX task draws it from the batch's key. A resumed run
+therefore replays the same batches, noise included, and ``fixed_data``
+reuses step 0's.
 """
 
 from __future__ import annotations
@@ -156,12 +160,14 @@ def _mark(marks, name: str, device):
 
 
 def make_train_step(task: Task, from_images: bool = False):
-    """The train step ``step(state, x, marks=None) -> metrics``.
+    """The train step ``step(state, x, marks=None, generator=None) -> metrics``.
 
     Synthetic mode: ``x`` is the ``torch.Generator`` the batch is drawn
-    from (``task.make_batch``). ``from_images``: ``x`` is a batch of
-    ground-truth images (radial: complex, or a (re, im) pair) and
-    ``task.batch_from_images`` synthesises the measurement inside the step.
+    from (``task.make_batch``; phantoms, then the preset's noise).
+    ``from_images``: ``x`` is a batch of ground-truth images (radial:
+    complex, or a (re, im) pair) and ``task.batch_from_images``
+    synthesises the measurement inside the step, with the preset's noise
+    drawn from ``generator`` when one is given (noiseless without).
     The step updates ``state`` in place and returns ``{"loss",
     "grad_norm"}`` and the task's aux terms (sino_unet's ``sino_loss`` and
     ``img_loss``) as 0-d device tensors (the norm is taken before
@@ -172,10 +178,10 @@ def make_train_step(task: Task, from_images: bool = False):
     f32_convs = not task.config.model.use_bfloat16
     synth = task.batch_from_images if from_images else task.make_batch
 
-    def step(state: TrainState, x, marks=None) -> dict:
+    def step(state: TrainState, x, marks=None, generator=None) -> dict:
         _mark(marks, "start", device)
         with torch.no_grad():
-            batch = synth(x)
+            batch = synth(x, generator) if from_images else synth(x)
         _mark(marks, "synthesis", device)
         loss, aux = task.loss_fn(state.model, batch)
         _mark(marks, "forward", device)

@@ -104,10 +104,20 @@ def test_projector_flops_match_jax_formula(kw):
 
 
 def test_unported_presets_and_flags_raise():
-    with pytest.raises(NotImplementedError, match="slice D"):
-        bench.bench_preset_recon("sino_unet_radial", 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice C"):
-        bench.main(["--preset-recon", "pdunet_fan", "--device", "cpu"])
+    """Every preset has a matrix batch now; what stays unported still
+    raises: the gridding NUFFT (item 14) and training's file-backed data
+    (item 7)."""
+    from pdunet_tpu_torch import train
+    from pdunet_tpu_torch.configs.presets import PRESETS
+    from pdunet_tpu_torch.geometry import RadialGeometry
+    from pdunet_tpu_torch.ops.nufft import make_radial_ops
+
+    assert set(bench.MATRIX_BATCH) == set(PRESETS)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        make_radial_ops(RadialGeometry(image_size=32, n_spokes=8, samples_per_spoke=63),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train.main(["--preset", "pdunet_fan", "--device", "cpu", "--data", "slices.h5"])
 
 
 def test_unet_scan_on_cpu(tmp_path, monkeypatch, capsys):

@@ -155,10 +155,13 @@ def test_build_task_defaults_to_cuda():
 
 
 def test_unported_task_kinds_raise():
+    """Every preset builds; an odd spoke length needs the gridding NUFFT
+    (not ported), and a model kind without a task raises."""
+    with pytest.raises(NotImplementedError, match="item 14"):
+        build_task(get_preset("sino_unet_radial").override(
+            {"geometry.samples_per_spoke": 511}), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_task(get_preset("sino_unet_radial"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_task(get_preset("pdunet_fan"), device="cpu")
+        build_task(get_preset("pdunet_fan").override({"model.kind": "unet3d"}), device="cpu")
 
 
 def test_infer_cli_on_cpu(tmp_path, capsys):
