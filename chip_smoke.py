@@ -142,6 +142,28 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      and a full-f32 matmul of stage 1's shape; (b) the preset at full width
      (2 split adjoint calls per recon; per step 4 split forward and 2 split
      adjoint; no pair, bf16 or CUDA-core launch).
+ 17. file-backed data: the native data library must build; stores of 48
+     slices at 256² in the npy container (real, and complex for MRI) and
+     an HU-domain volume (convert_volume); (17) pdunet_parallel through
+     ``train(data=...)`` for 20 steps with low-dose noise from each step's
+     generator, (17b) pdunet_radial through ``train --data`` for 10 steps
+     with k-space noise: launch counts from 0 before each run against the
+     synthetic path's, validation on whole batches of the val split, one
+     file-backed step's launches against the synthetic step's, the
+     synthetic step, the file-backed one and one from host batches read
+     beforehand (no producer thread), host time and idle share in turns,
+     then ``infer --ckpt best
+     --data ... --split test --corrupt --export-png`` (17: on the HU
+     volume, with ``--hu-window 40 400``): launch counts, finite PSNR/SSIM,
+     PNGs that decode;
+ 18. the Kaiser-Bessel gridding NUFFT at 256² with 128 spokes of 511
+     samples (the odd readout warns and falls back): A and A† against the
+     float64 numpy twins at B = 4 (≤ 1e-5), the dot test (≤ 1e-5), the
+     adjoint bit for bit twice, CUDA-event times of A, A† and fbp at B = 4
+     and 128 beside the adjoint's grid sum as a segment sum and as
+     ``index_add_``; pdunet_radial at 511 samples served at batch 4 and
+     trained 10 steps with no projector kernel launched, and its recon time
+     and profile at batch 4.
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
@@ -149,8 +171,10 @@ builders of both routes of the pair and of the per-angle kernels; rows 1-4
 carry their launches per train step, rows 1-2 also their launches on each
 slice-B path and on pdunet_fan's, their dense-plan split-route times and
 their times on the fan backing plans, rows 3-4 their launches on
-sino_unet_radial's path and their times on its dense plan), then the card's
-name and power limit, then the last line ``{"ok": true, "device": {...}}``.
+sino_unet_radial's path and their times on its dense plan, and all four
+their launches on the file-backed paths, rows 3-4 also on the gridding
+path, where they must not run), then the card's name and power limit, then
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -438,10 +462,12 @@ def split_sweep(ck, splits, call, tiles, counts, label, card):
     return out
 
 
-def profile_recon(one_recon, card, reps=3, label="recons"):
+def profile_recon(one_recon, card, reps=3, label="recons", gridding=False):
     """Device time of ``reps`` calls of ``one_recon`` (a recon or a train
     step) by kernel, from torch.profiler: where the time goes, and the
-    device's idle share of the wall time. Returns {"wall_ms", "busy_ms",
+    device's idle share of the wall time. ``gridding`` (phase 18 only, so
+    that earlier phases keep their groups) counts FFTs, gathers and segment
+    sums as a group of their own. Returns {"wall_ms", "busy_ms",
     "idle_share", "groups_ms"}, each per call."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -467,6 +493,8 @@ def profile_recon(one_recon, card, reps=3, label="recons"):
         g = ("mirror-pair projector kernels (radon_pair*.cu)" if "pair_" in n
              else "per-angle projector kernels (radon_group*.cu)"
              if "group_" in n
+             else "FFTs, gathers and segment sums (gridding NUFFT, spoke transforms)"
+             if gridding and any(s in n.lower() for s in ("fft", "indexselect", "segment_reduce"))
              else "convolutions" if any(s in n.lower() for s in ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "implicit", "sm90"))
              else "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
@@ -2442,6 +2470,433 @@ def slice_c_phases(dev, card, gen):
     }
 
 
+#: the stores of phases 17 / 17b: 48 slices at the presets' 256²
+DATA_STORE = {"n_slices": 48, "image_size": 256}
+#: phase 18's radial geometry: pdunet_radial's 128 measured spokes with an
+#: odd readout, which only the gridding NUFFT takes; and its batches
+GRIDDING_GEOM = {"image_size": 256, "n_spokes": 128, "samples_per_spoke": 511}
+GRIDDING_BATCHES = (4, 128)
+
+#: file-backed training and scoring (phases 17 / 17b): the preset, its
+#: store (complex for the radial task), the noise its training applies from
+#: the step's generator, the steps of train() and the validation interval,
+#: whether it runs through the CLI, and infer's scoring flags
+DATA_PATHS = {
+    "pdunet_parallel": dict(complex_phase=False, noise={"train.photons_per_ray": 1e5},
+                            steps=20, eval_every=10, cli=False,
+                            score=("--hu-window", "40", "400")),
+    # MRI magnitudes are not attenuation: no HU window
+    "pdunet_radial": dict(complex_phase=True, noise={"train.kspace_snr_db": 30.0},
+                          steps=10, eval_every=5, cli=True, score=()),
+}
+
+
+def _host_step_ms(fn, reps=10):
+    """Warm host-clock milliseconds of ``fn()`` (reps ending in a synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+@contextlib.contextmanager
+def recording_splits():
+    """Record the (split, shuffled) of every iterate_batches call of the
+    train loop: yields the list."""
+    from pdunet_tpu_torch.training import loop
+
+    real, reads = loop.iterate_batches, []
+
+    def recording(ds, batch_size, shuffle=True, **kw):
+        reads.append((ds.split, shuffle))
+        return real(ds, batch_size, shuffle=shuffle, **kw)
+
+    loop.iterate_batches = recording
+    try:
+        yield reads
+    finally:
+        loop.iterate_batches = real
+
+
+def file_backed_phase(name, dev, card, tmp, store, score_store):
+    """Phase 17 / 17b: file-backed training and scoring of ``name`` at full
+    width from the slice store ``store``. train() (phase 17, the library
+    call) or ``train --data`` (17b, the CLI) with the preset's noise from
+    each step's generator: launch counts from 0 before it against the
+    synthetic path's (SLICE_C_LAUNCHES' pattern: build_task, steps, the val
+    split's synthesis and recons), validation on whole batches of the val
+    split; one from-images step's launches after a warm one against the
+    synthetic step's (TRAIN_STEP_LAUNCHES); the file-backed step (prefetched
+    host batch, copy to the card, synthesis, step) against the synthetic one
+    and one from host batches read beforehand, in turns, host clock and
+    idle share; then ``infer --ckpt best --data
+    score_store --split test --corrupt --export-png`` (phase 17 also with
+    ``--hu-window 40 400``) with its launch counts, finite PSNR/SSIM and
+    PNGs that decode."""
+    import io
+    import os
+
+    from pdunet_tpu_torch import infer
+    from pdunet_tpu_torch import train as train_cli
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.data.datasets import SliceDataset, iterate_batches
+    from pdunet_tpu_torch.data.native import HostPrefetcher
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+    from pdunet_tpu_torch.training import loop
+    from pdunet_tpu_torch.training.tasks import build_task
+    from pdunet_tpu_torch.utils.png import read_gray_png
+
+    spec = DATA_PATHS[name]
+    radial = spec["complex_phase"]
+    counts_fn = _group_route_counts if radial else _pair_route_counts
+    # pdunet's unroll: the same counts per phase on both geometries (a fan A
+    # is one backing-plan call per group, as a parallel or radial one)
+    want = SLICE_C_LAUNCHES["pdunet_fan"]
+    want_step = tuple(TRAIN_STEP_LAUNCHES[op][r] for op in ("fwd", "adj")
+                      for r in ("tc", "split"))
+    over = {**spec["noise"], "train.eval_every": spec["eval_every"], "train.log_every": 1}
+    config = get_preset(name).override(over)
+    B, N, steps = config.train.batch_size, config.geometry.image_size, spec["steps"]
+    ckpt_dir = os.path.join(tmp, f"{name}_ckpt")
+    val_len = len(SliceDataset(store, "val"))
+    n_val = max(1, min(-(-config.train.val_slices // B), val_len // B))
+    n_evals = steps // spec["eval_every"] + 1  # the interval's evals and the final one
+    st = {"batch": B, "steps": steps, "noise": spec["noise"], "n_val_batches": n_val}
+
+    ck.reset_launch_counts()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_splits() as reads:
+        if spec["cli"]:
+            metrics = os.path.join(tmp, f"{name}_metrics.jsonl")
+            sets = [a for k, v in over.items() for a in ("--set", f"{k}={v}")]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(["--preset", name, "--device", str(dev), "--data", store,
+                                     "--split", "train", "--steps", str(steps), "--ckpt-dir",
+                                     ckpt_dir, "--metrics", metrics, *sets])
+            print(f"[train] {name} train --data: {buf.getvalue().strip().splitlines()[-1]}")
+            check(rc == 0, f"{name}: train --data exited {rc}")
+            rows = [json.loads(ln) for ln in pathlib.Path(metrics).read_text().splitlines()]
+            losses = [r["loss"] for r in rows if "loss" in r]
+            evals = [r for r in rows if "psnr" in r]
+        else:
+            res = loop.train(config.override({"train.ckpt_dir": ckpt_dir}), steps=steps,
+                             device=dev, verbose=False, data=store, split="train")
+            losses = [h["loss"] for h in res.history]
+            evals = [res.final_eval]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ran = counts_fn(ck)
+    expect = _plus(want["build"], _times(steps, want_step), _times(n_val, want["synth"]),
+                   _times(n_evals * n_val, want["recon"]))
+    print(f"[train] {name} file-backed ({'train --data' if spec['cli'] else 'train(data=)'}, "
+          f"{steps} steps, batch {B}, {spec['noise']}): {run_s:.2f} s; losses "
+          f"{[round(v, 5) for v in losses]}; evals {evals}; iterate_batches calls {reads}; "
+          f"launches (fwd bf16, fwd split, adj bf16, adj split) {ran}, expected {expect}")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{name}: file-backed losses {losses}")
+    check(ran == expect, f"{name} file-backed train: launches {ran}, expected {expect}")
+    check(_other_launches(ck, pk, radial=radial) == 0,
+          f"{name}: a CUDA-core, other-family or probe kernel ran in file-backed training")
+    check(reads.count(("val", False)) == 1 and reads.count(("train", True)) == 1
+          and ("train", False) not in reads,
+          f"{name}: validation did not read whole batches of the val split: {reads}")
+    check(os.path.isdir(os.path.join(ckpt_dir, "best")), f"{name}: no best checkpoint")
+    st.update(train_s=run_s, losses=losses, evals=evals, launches=ran, split_reads=reads)
+
+    # one from-images step after a warm one, and the steps in turns
+    task = build_task(config, device=dev)
+    state = loop.build_state(task, n_steps=100)
+    synth_step = loop.make_train_step(task)
+    file_step = loop.make_train_step(task, from_images=True)
+    ds = SliceDataset(store, "train")
+    batches = iterate_batches(ds, B, shuffle=True, seed=config.train.seed)
+    pf = HostPrefetcher(lambda _i: next(batches), depth=2)
+    gen = torch.Generator(device=dev)
+    try:
+        def one_file_step(i=0):
+            images = torch.as_tensor(next(pf), device=dev)
+            return file_step(state, images, generator=gen.manual_seed(100 + i))
+
+        def one_synth_step(i=0):
+            return synth_step(state, gen.manual_seed(200 + i))
+
+        # the same copy and step from host batches read beforehand: no
+        # producer thread beside the step
+        preread = [b for b, _ in zip(iterate_batches(ds, B, shuffle=False), range(4))]
+
+        def one_preread_step(i=0):
+            images = torch.as_tensor(preread[i % 4], device=dev)
+            return file_step(state, images, generator=gen.manual_seed(300 + i))
+
+        one_file_step()
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        for i in range(2):
+            one_file_step(1 + i)
+        torch.cuda.synchronize()
+        per_step = _times(1 / 2, counts_fn(ck))
+        print(f"[train] {name} launches per file-backed train step after a warm one: "
+              f"{per_step}, expected the synthetic step's {want_step}")
+        check(per_step == want_step, f"{name}: file-backed per-step launches {per_step}")
+        fns = {"synthetic": one_synth_step, "file": one_file_step, "preread": one_preread_step}
+        times = {k: [] for k in fns}
+        for key in ("synthetic", "file", "preread", "preread", "file", "synthetic"):
+            times[key].append(_host_step_ms(fns[key]))
+        idle = {k: profile_recon(fn, card, label=f"{name} {k} steps") for k, fn in fns.items()}
+    finally:
+        pf.close()
+        ds.close()
+    step_ms = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"[time] {name} train step at batch {B}, host clock in turns (synthetic, file, "
+          f"preread, preread, file, synthetic): synthetic {step_ms['synthetic']:.3f} ms, "
+          f"file-backed {step_ms['file']:.3f} ms, file-backed from batches read beforehand "
+          f"{step_ms['preread']:.3f} ms (turns {times}); idle share "
+          f"{ {k: v.get('idle_share') for k, v in idle.items()} } ({card})")
+    st.update(launches_per_step=dict(zip(("fwd_tc", "fwd_split", "adj_tc", "adj_split"),
+                                         per_step)),
+              step_ms=step_ms, step_turns_ms=times,
+              idle_share={k: v.get("idle_share") for k, v in idle.items()},
+              profile=idle)
+    del task, state, synth_step, file_step
+    torch.cuda.empty_cache()
+
+    # scoring: the best checkpoint on the test split, corrupted and windowed
+    png_dir = os.path.join(tmp, f"{name}_png")
+    js = os.path.join(tmp, f"{name}_infer.json")
+    sets = [a for k, v in spec["noise"].items() for a in ("--set", f"{k}={v}")]
+    test_len = len(SliceDataset(score_store, "test"))
+    ck.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = infer.main(["--preset", name, "--device", str(dev), "--ckpt-dir", ckpt_dir,
+                         "--ckpt", "best", "--data", score_store, "--split", "test",
+                         "--corrupt", *spec["score"], "--export-png", png_dir,
+                         "--json-out", js, *sets])
+    torch.cuda.synchronize()
+    scored = counts_fn(ck)
+    table = json.loads(pathlib.Path(js).read_text())
+    n_b = test_len // B
+    expect = _plus(want["build"], _times(n_b, _plus(want["synth"], want["recon"])))
+    print(f"[infer] {name} --data --split test --corrupt {' '.join(spec['score'])}: "
+          f"{buf.getvalue().strip()}; launches {scored}, expected {expect}")
+    check(rc == 0 and table["n_slices"] == n_b * B and math.isfinite(table["psnr_mean"])
+          and math.isfinite(table["ssim_mean"]), f"{name}: infer table {table}")
+    check(scored == expect, f"{name} infer --data: launches {scored}, expected {expect}")
+    pngs = sorted(os.listdir(png_dir))
+    shapes = {p: read_gray_png(os.path.join(png_dir, p)).shape for p in pngs}
+    check(len(pngs) == 2 * min(4, n_b * B) and set(shapes.values()) == {(N, N)},
+          f"{name}: exported PNGs {shapes}")
+    print(f"[check] {name} exported {len(pngs)} PNGs, each decoding (zlib) to {N}x{N}: {pngs}")
+    st.update(infer=table, infer_launches=scored, pngs=pngs)
+    return st
+
+
+def data_path_phases(dev, card):
+    """Phases 17 / 17b: file-backed pdunet_parallel and pdunet_radial at
+    full width. Stores of 48 slices at 256² (0.8 / 0.1 / 0.1 splits) in the
+    npy container, written with the native rasteriser (which must build
+    here), and an HU-domain volume of the real one's slices
+    (convert_volume), which phase 17 scores on."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pdunet_tpu_torch.data import datasets, native
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        check(native.available(), "the native data library did not build on this machine")
+        build_s = time.perf_counter() - t0
+        print(f"[chip_smoke] native library {native.library_path().name}: built and loaded in "
+              f"{build_s:.2f} s")
+        stores = {}
+        for name, spec in DATA_PATHS.items():
+            t0 = time.perf_counter()
+            stores[name] = datasets.write_phantom_dataset(
+                os.path.join(tmp, f"{name}_store"), DATA_STORE["n_slices"],
+                DATA_STORE["image_size"], seed=5, complex_phase=spec["complex_phase"])
+            print(f"[chip_smoke] {name} store ({DATA_STORE}, complex "
+                  f"{spec['complex_phase']}): {time.perf_counter() - t0:.2f} s")
+        # a CT-like volume in Hounsfield units: the store's ellipses at
+        # ±250 HU in water (0 HU), so a soft-tissue window (40 ± 200 HU)
+        # holds every slice's content; it reads as 1 + HU/1000
+        dens = datasets.SliceDataset(stores["pdunet_parallel"], "test")
+        vol = np.load(os.path.join(stores["pdunet_parallel"], "slices.npy"))
+        hu = datasets.convert_volume(250.0 * vol, os.path.join(tmp, "hu_store"), domain="hu")
+        back = datasets.SliceDataset(hu, "test")
+        hu_err = max(float(np.abs(back[i] - (1.0 + 0.25 * dens[i])).max())
+                     for i in range(len(dens)))
+        print(f"[check] the HU volume reads back as relative attenuation 1 + HU/1000: max abs "
+              f"{hu_err:.3e} (tol 1e-5)")
+        check(back.domain == "hu" and hu_err < 1e-5, "the HU store does not read back")
+        out["native_build_s"] = build_s
+        out["pdunet_parallel"] = file_backed_phase("pdunet_parallel", dev, card, tmp,
+                                                   stores["pdunet_parallel"], hu)
+        out["pdunet_radial"] = file_backed_phase("pdunet_radial", dev, card, tmp,
+                                                 stores["pdunet_radial"],
+                                                 stores["pdunet_radial"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def gridding_phase(dev, card, gen):
+    """Phase 18: the Kaiser-Bessel gridding NUFFT on the card, at 256² with
+    128 golden-angle spokes of 511 samples (an odd readout: make_radial_ops
+    warns and falls back). A and A† against the float64 numpy twins
+    (dcf._np_nufft_forward / _np_nufft_adjoint) at B = 4 (≤ 1e-5), the dot
+    test (≤ 1e-5), the adjoint twice bit for bit, CUDA-event times of A, A†
+    and fbp at B = 4 and 128 and of the adjoint's grid sum by index_add_
+    (atomics) beside the segment sum; then pdunet_radial at 511 samples
+    served at batch 4 (``infer``) and trained 10 steps, with no per-angle
+    (or any other) kernel launched."""
+    import io
+    import warnings
+
+    import numpy as np
+
+    from pdunet_tpu_torch import infer
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.geometry import RadialGeometry
+    from pdunet_tpu_torch.ops.nufft import dcf, make_radial_ops
+    from pdunet_tpu_torch.ops.nufft.nufft import _grid_sum, nufft_adjoint, nufft_forward
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon import proto_kernels as pk
+    from pdunet_tpu_torch.training import loop
+    from pdunet_tpu_torch.training.tasks import build_task
+
+    geom = RadialGeometry(**GRIDDING_GEOM)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ops = make_radial_ops(geom, device=dev)
+    build_s = time.perf_counter() - t0
+    msgs = [str(w.message) for w in caught]
+    check(any("even samples_per_spoke" in m for m in msgs), f"no fallback warning: {msgs}")
+    plan = ops.plan
+    check(type(plan).__name__ == "NufftPlan", "the odd readout did not fall back to gridding")
+    m = plan.meta
+    N, G, J, S, R = m["N"], m["G"], m["J"], m["n_spokes"], m["n_samples"]
+    n_taps = plan.idx.numel()
+    print(f"[chip_smoke] gridding plan: N={N} G={G} J={J} {S} spokes x {R} samples, {n_taps} "
+          f"taps, longest grid-cell segment {int(plan.seg_len.max())}; make_radial_ops "
+          f"{build_s:.2f} s; warning: {msgs}")
+    st = {"build_s": build_s, "n_taps": n_taps}
+
+    cplx = lambda *shape: torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                                        torch.randn(*shape, generator=gen, device=dev))
+    x, y = cplx(4, N, N), cplx(4, S, R)
+    T = dcf._plan_tables(geom)
+    fx, ay = nufft_forward(plan, x).cpu(), nufft_adjoint(plan, y).cpu()
+    xh, yh = x.cpu().numpy().astype(np.complex128), y.cpu().numpy().astype(np.complex128)
+    ref_f = np.stack([dcf._np_nufft_forward(T, xh[b]) for b in range(4)])
+    ref_a = np.stack([dcf._np_nufft_adjoint(T, yh[b]) for b in range(4)])
+    rel_f = float(np.linalg.norm(fx.numpy() - ref_f) / np.linalg.norm(ref_f))
+    rel_a = float(np.linalg.norm(ay.numpy() - ref_a) / np.linalg.norm(ref_a))
+    lhs = torch.vdot(fx.flatten().to(torch.complex128), y.cpu().flatten().to(torch.complex128))
+    rhs = torch.vdot(x.cpu().flatten().to(torch.complex128), ay.flatten().to(torch.complex128))
+    dot = float(abs(lhs - rhs) / abs(lhs))
+    again = nufft_adjoint(plan, y)
+    bitwise = torch.equal(again.cpu(), ay)
+    print(f"[check] gridding A / A† at B=4 vs the float64 numpy twins: rel {rel_f:.3e} / "
+          f"{rel_a:.3e} (tol 1e-5); dot test {dot:.3e} (tol 1e-5); adjoint twice bit for bit: "
+          f"{bitwise}")
+    check(rel_f <= 1e-5 and rel_a <= 1e-5, "gridding disagrees with the numpy twins")
+    check(dot <= 1e-5, f"gridding dot test {dot}")
+    check(bitwise, "the gridding adjoint is not bitwise repeatable")
+    st.update(rel_fwd=rel_f, rel_adj=rel_a, dot=dot, adjoint_bitwise=bitwise)
+
+    def index_add_grid(k):
+        """The adjoint's grid sum as the reference's scatter-add: index_add_
+        of the taps onto a real view of the grid (atomics on the card)."""
+        B_ = k.shape[0]
+        taps = (k.reshape(B_, -1, 1) * plan.w).reshape(B_, -1)
+        grid = torch.zeros(B_, G * G, 2, device=dev)
+        return grid.index_add_(1, plan.idx, torch.view_as_real(taps))
+
+    def segment_grid(k):
+        return _grid_sum(plan, k.reshape(k.shape[0], -1))
+
+    ia = [index_add_grid(y) for _ in range(2)]
+    ia_bitwise = torch.equal(ia[0], ia[1])
+    ia_rel = rel(ia[0], torch.view_as_real(segment_grid(y).contiguous()))
+    print(f"[check] index_add_ grid sum vs the segment sum: rel {ia_rel:.3e}; index_add_ twice "
+          f"bit for bit: {ia_bitwise}")
+    check(ia_rel < 1e-5, "the segment sum disagrees with index_add_")
+    st["index_add_bitwise"] = ia_bitwise
+    for B_ in GRIDDING_BATCHES:
+        xb, yb = cplx(B_, N, N), cplx(B_, S, R)
+        row = {"A": device_ms(lambda: ops.A(xb), 5), "At": device_ms(lambda: ops.At(yb), 5),
+               "fbp": device_ms(lambda: ops.fbp(yb), 5),
+               "grid_sum_segment": device_ms(lambda: segment_grid(yb), 5),
+               "grid_sum_index_add": device_ms(lambda: index_add_grid(yb), 5)}
+        # bytes each op must move: images and k-space once, plus the plan's
+        # taps (int64 index and f32 weight); f32 bound by HBM
+        nbytes = 8 * B_ * (N * N + S * R) + 12 * n_taps
+        row["bytes_bound_ms"] = nbytes / PEAK_BYTES * 1e3
+        print(f"[time] gridding at B={B_}: A {row['A']:.4f} ms, A† {row['At']:.4f} ms, fbp "
+              f"{row['fbp']:.4f} ms; A†'s grid sum: segment sum {row['grid_sum_segment']:.4f} "
+              f"ms, index_add_ {row['grid_sum_index_add']:.4f} ms; bytes bound "
+              f"{row['bytes_bound_ms']:.4f} ms ({card})")
+        st[f"b{B_}"] = row
+        del xb, yb
+        torch.cuda.empty_cache()
+    del x, y, ia
+
+    # pdunet_radial at 511 samples: served, then trained; no projector kernel
+    R = GRIDDING_GEOM["samples_per_spoke"]
+    config = get_preset("pdunet_radial").override({"geometry.samples_per_spoke": R})
+    ck.reset_launch_counts()
+    pk.reset_launch_counts()
+    buf = io.StringIO()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(buf):
+        warnings.simplefilter("ignore", UserWarning)
+        rc = infer.main(["--preset", "pdunet_radial", "--device", str(dev), "--set",
+                         f"geometry.samples_per_spoke={R}", "--n-slices", "8"])
+        torch.cuda.synchronize()
+        served = _group_route_counts(ck) + _pair_route_counts(ck)
+        res = loop.train(config.override({"train.log_every": 1}), steps=10, device=dev,
+                         verbose=False)
+        torch.cuda.synchronize()
+        trained = _group_route_counts(ck) + _pair_route_counts(ck)
+        task = build_task(config, device=dev)
+    losses = [h["loss"] for h in res.history]
+    print(f"[infer] pdunet_radial at {R} samples: {buf.getvalue().strip()}")
+    print(f"[train] pdunet_radial at {R} samples, 10 steps: losses "
+          f"{[round(v, 5) for v in losses]}, final eval {res.final_eval}; projector launches "
+          f"(per-angle, then pair) after serving {served}, after training {trained}")
+    check(rc == 0 and len(losses) == 10 and all(math.isfinite(v) for v in losses),
+          f"pdunet_radial at {R} samples: rc {rc}, losses {losses}")
+    check(sum(trained) == 0 and _other_launches(ck, pk, radial=True) == 0,
+          "a projector kernel ran on the gridding path")
+    task.model.eval()
+    with torch.inference_mode():
+        clean = task.make_batch(torch.Generator(device=dev).manual_seed(0))
+        batch = task.batch_from_images(clean["image_c"])
+
+    def one_recon():
+        with torch.inference_mode():
+            task.recon_fn(task.model, batch)
+
+    st["recon_ms_b4"] = recon_rate(one_recon, 4, card, f"pdunet_radial ({R} samples)") * 1e3
+    st["recon_profile_b4"] = profile_recon(one_recon, card, gridding=True)
+    st.update(served_launches=served, trained_launches=trained, losses=losses,
+              final_eval=res.final_eval, sigma=task.sigma)
+    del res, task, batch
+    torch.cuda.empty_cache()
+    return st
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2852,6 +3307,10 @@ def main():
     elapsed("phases 14b-f (slice B presets)")
     slice_c = slice_c_phases(dev, card, gen)
     elapsed("phases 15-16 (pdunet_fan, sino_unet_radial)")
+    data_paths = data_path_phases(dev, card)
+    elapsed("phases 17-17b (file-backed pdunet_parallel and pdunet_radial)")
+    gridding = gridding_phase(dev, card, gen)
+    elapsed("phase 18 (gridding NUFFT)")
     for e in entries + radial_entries:
         preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
                   "pdunet_parallel", "project_group": "pdunet_radial",
@@ -2860,6 +3319,20 @@ def main():
             op = "fwd" if e["name"].startswith("project") else "adj"
             e["launches_per_train_step"] = {
                 "preset": preset, **train_stats[preset]["launches_per_step"][op]}
+            # the file-backed paths (phases 17 / 17b), each counted from 0:
+            # train() or train --data, one step after a warm one, and infer
+            i = 0 if op == "fwd" else 2
+            fb = data_paths[preset]
+            e["launches_file_backed"] = {
+                "preset": preset, "train_tc": fb["launches"][i],
+                "train_split": fb["launches"][i + 1],
+                "train_step_tc": fb["launches_per_step"][f"{op}_tc"],
+                "train_step_split": fb["launches_per_step"][f"{op}_split"],
+                "infer_tc": fb["infer_launches"][i], "infer_split": fb["infer_launches"][i + 1]}
+            if preset == "pdunet_radial":
+                # the gridding path (phase 18): served and trained with none
+                e["launches_gridding_path"] = gridding["trained_launches"][i] + \
+                    gridding["trained_launches"][i + 1]
         if e["name"] in ("project_pair_group", "backproject_pair_group"):
             # the slice-B paths, each counted from 0 (phase 14): serving
             # (build_task + 2 batches) and one train step; the split route
@@ -2909,7 +3382,7 @@ def main():
                       "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
-                      "slice_c": slice_c,
+                      "slice_c": slice_c, "data_path": data_paths, "gridding": gridding,
                       "build_s": build_s, "phase_s": phase_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

@@ -1,5 +1,5 @@
-"""Sinogram and k-space transforms and noise models (port of
-``pdunet_tpu/data/pipeline.py`` without its HU windowing).
+"""Sinogram and k-space transforms, noise models and HU windowing (port
+of ``pdunet_tpu/data/pipeline.py``).
 
 ``subsample_angles`` keeps every k-th angle of a dense sinogram;
 ``interp_upsample_angles`` re-expands the sparse one linearly to the dense
@@ -8,8 +8,10 @@ angle grid, the network input of the sinogram-upsampling task;
 analogues on golden-angle k-space spokes. ``lowdose_poisson_noise`` (CT
 photon counting) and ``kspace_gaussian_noise`` (MRI receiver noise) draw a
 standard normal from a ``torch.Generator`` on the data's device; each is a
-function of that draw, which a caller may pass as ``normal`` instead. All
-are plain tensor functions on any device.
+function of that draw, which a caller may pass as ``normal`` instead.
+``mu_to_hu`` / ``hu_to_mu`` convert attenuation to Hounsfield units and back,
+and ``normalize_ct_window`` clips a HU image into a display window. All are
+plain tensor functions on any device.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["MU_WATER", "subsample_angles", "interp_upsample_angles", "reverse_spoke_samples",
-           "interp_upsample_spokes", "lowdose_poisson_noise", "kspace_gaussian_noise"]
+           "interp_upsample_spokes", "lowdose_poisson_noise", "kspace_gaussian_noise",
+           "mu_to_hu", "hu_to_mu", "normalize_ct_window"]
 
 MU_WATER = 0.02  # 1/mm, the attenuation of water at about 70 keV
 
@@ -140,3 +143,20 @@ def kspace_gaussian_noise(generator, kspace: torch.Tensor, snr_db: float,
         normal = torch.randn(kspace.shape, generator=generator, device=kspace.device,
                              dtype=kspace.dtype)
     return kspace + sigma.to(kspace.dtype) * normal
+
+
+def mu_to_hu(mu: torch.Tensor, mu_water: float = MU_WATER) -> torch.Tensor:
+    """Attenuation (1/mm) → Hounsfield units: water 0, air −1000."""
+    return 1000.0 * (mu - mu_water) / mu_water
+
+
+def hu_to_mu(hu: torch.Tensor, mu_water: float = MU_WATER) -> torch.Tensor:
+    """Hounsfield units → attenuation (1/mm), the inverse of :func:`mu_to_hu`."""
+    return mu_water * (1.0 + hu / 1000.0)
+
+
+def normalize_ct_window(img: torch.Tensor, center: float = 0.0,
+                        width: float = 2000.0) -> torch.Tensor:
+    """Window a HU image into [0, 1]: (img − (center − width/2)) / width, clipped."""
+    lo = center - width / 2.0
+    return torch.clamp((img - lo) / width, 0.0, 1.0)

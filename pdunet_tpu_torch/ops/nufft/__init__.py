@@ -1,17 +1,21 @@
-"""Radial MRI operators (port of ``pdunet_tpu/ops/nufft``, the
-``impl="fourier_slice"`` path of ``make_radial_ops``).
+"""Radial MRI operators (port of ``pdunet_tpu/ops/nufft``).
 
 ``A`` (type-2 NUFFT, image → k-space) and ``At`` (its conjugate transpose)
-run the fourier-slice formulation (:mod:`.fourier_slice`) on the per-angle
-projector kernels; ``fbp`` is the density-compensated adjoint
-``At(k·dcf)/(2π)²``. The Kaiser-Bessel gridding implementation is not ported
-yet (ROADMAP item 14).
+run one of two implementations: ``impl="fourier_slice"`` (the default), the
+fourier-slice formulation (:mod:`.fourier_slice`) on the per-angle
+projector kernels, or ``impl="gridding"``, the Kaiser-Bessel gridding
+NUFFT (:mod:`.nufft`: FFTs, a gather and a segment sum, always complex64).
+The fourier-slice path needs an even ``samples_per_spoke``; for an odd one
+``make_radial_ops`` warns and falls back to gridding, as the JAX package
+does. ``fbp`` is the density-compensated adjoint ``At(k·dcf)/(2π)²``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, NamedTuple
+import warnings
+from typing import Callable, NamedTuple, Union
 
 import torch
 
@@ -27,39 +31,45 @@ from pdunet_tpu_torch.ops.nufft.fourier_slice import (
     fs_nufft_adjoint,
     fs_nufft_forward,
 )
+from pdunet_tpu_torch.ops.nufft.nufft import (
+    NufftPlan,
+    build_nufft_plan,
+    nufft_adjoint,
+    nufft_forward,
+)
 
 __all__ = ["NufftOps", "make_radial_ops", "radial_dcf", "radial_dcf_pipe_menon"]
 
 
 class _Forward(torch.autograd.Function):
-    """A, C-linear. PyTorch's gradient of a C-linear map y = A x is
-    A^H applied to the incoming gradient, with no conjugations (JAX's
-    cotangent convention is the conjugate of PyTorch's, hence its
-    conj(A†(conj(ḡ))))."""
+    """A = ``fwd``, C-linear, whose conjugate transpose is ``adj``. PyTorch's
+    gradient of a C-linear map y = A x is A^H applied to the incoming
+    gradient, with no conjugations (JAX's cotangent convention is the
+    conjugate of PyTorch's, hence its conj(A†(conj(ḡ))))."""
 
     @staticmethod
-    def forward(ctx, f, plan):
-        ctx.plan, ctx.real_input = plan, not f.is_complex()
-        return fs_nufft_forward(plan, f)
+    def forward(ctx, f, fwd, adj):
+        ctx.adj, ctx.real_input = adj, not f.is_complex()
+        return fwd(f)
 
     @staticmethod
     def backward(ctx, g):
-        grad = fs_nufft_adjoint(ctx.plan, g)
-        return (grad.real if ctx.real_input else grad), None
+        grad = ctx.adj(g)
+        return (grad.real if ctx.real_input else grad), None, None
 
 
 class _Adjoint(torch.autograd.Function):
-    """A† with gradient A."""
+    """A† = ``adj`` with gradient A = ``fwd``."""
 
     @staticmethod
-    def forward(ctx, k, plan):
-        ctx.plan, ctx.real_input = plan, not k.is_complex()
-        return fs_nufft_adjoint(plan, k)
+    def forward(ctx, k, fwd, adj):
+        ctx.fwd, ctx.real_input = fwd, not k.is_complex()
+        return adj(k)
 
     @staticmethod
     def backward(ctx, g):
-        grad = fs_nufft_forward(ctx.plan, g)
-        return (grad.real if ctx.real_input else grad), None
+        grad = ctx.fwd(g)
+        return (grad.real if ctx.real_input else grad), None, None
 
 
 class NufftOps(NamedTuple):
@@ -73,7 +83,8 @@ class NufftOps(NamedTuple):
     image_shape: tuple
     sino_shape: tuple
     dcf: torch.Tensor
-    plan: FsPlan
+    #: the fourier-slice plan, or the gridding plan with ``impl="gridding"``
+    plan: Union[FsPlan, NufftPlan]
 
 
 def make_radial_ops(geom: RadialGeometry, impl: str = "fourier_slice",
@@ -81,28 +92,37 @@ def make_radial_ops(geom: RadialGeometry, impl: str = "fourier_slice",
                     device="cuda") -> NufftOps:
     """Differentiable radial NUFFT bundle on ``device``.
 
-    ``dtype`` is the projector's operand type (float32 or bfloat16).
-    ``dcf``: density compensation for ``fbp``, "pipe_menon" (default) or
-    "voronoi_ramp". Only ``impl="fourier_slice"`` with an even
-    ``samples_per_spoke`` is ported; anything else raises rather than
-    silently running another operator.
+    ``impl``: "fourier_slice" (default; ``dtype``, float32 or bfloat16, is
+    its projector's operand type) or "gridding" (Kaiser-Bessel, 4 taps per
+    axis on a grid oversampled twice; complex64 whatever ``dtype`` says).
+    An odd ``samples_per_spoke`` has no fourier-slice grid: the default
+    then warns and runs gridding. ``dcf``: density compensation for
+    ``fbp``, "pipe_menon" (default) or "voronoi_ramp".
     """
-    if impl == "gridding" or (impl == "fourier_slice" and geom.samples_per_spoke % 2):
-        raise NotImplementedError(
-            "the Kaiser-Bessel gridding NUFFT (impl='gridding', which the JAX "
-            "package also uses for an odd samples_per_spoke) is not ported "
-            f"yet (ROADMAP item 14); got impl={impl!r}, "
-            f"samples_per_spoke={geom.samples_per_spoke}")
-    if impl != "fourier_slice":
+    if impl == "fourier_slice" and geom.samples_per_spoke % 2:
+        warnings.warn(
+            "fourier_slice needs an even samples_per_spoke (got "
+            f"{geom.samples_per_spoke}); falling back to impl='gridding'",
+            stacklevel=2)
+        impl = "gridding"
+    if impl == "fourier_slice":
+        plan = build_fs_plan(geom, dtype=dtype, device=device)
+        dcf_w = torch.as_tensor(resolve_dcf(geom, dcf), device=device)
+        fwd = functools.partial(fs_nufft_forward, plan)
+        adj = functools.partial(fs_nufft_adjoint, plan)
+    elif impl == "gridding":
+        plan = build_nufft_plan(geom, dcf=dcf, device=device)
+        dcf_w = plan.dcf
+        fwd = functools.partial(nufft_forward, plan)
+        adj = functools.partial(nufft_adjoint, plan)
+    else:
         raise ValueError(f"unknown NUFFT impl {impl!r}")
-    plan = build_fs_plan(geom, dtype=dtype, device=device)
-    dcf_w = torch.as_tensor(resolve_dcf(geom, dcf), device=device)
 
     def A(f):
-        return _Forward.apply(f, plan)
+        return _Forward.apply(f, fwd, adj)
 
     def At(k):
-        return _Adjoint.apply(k, plan)
+        return _Adjoint.apply(k, fwd, adj)
 
     def fbp(kdata, filter_name=None):
         del filter_name

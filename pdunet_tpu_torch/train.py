@@ -5,6 +5,7 @@ Usage:
   python -m pdunet_tpu_torch.train --preset pdunet_radial --ckpt-dir runs/rad --resume auto
   python -m pdunet_tpu_torch.train --preset sino_unet_parallel --steps 20 --metrics m.jsonl
   python -m pdunet_tpu_torch.train --preset pdunet_fan --steps 20 --ckpt-dir runs/fan
+  python -m pdunet_tpu_torch.train --preset pdunet_parallel --data store --split train
   python -m pdunet_tpu_torch.train --preset pdunet_parallel --device cpu --steps 20 \\
       --set geometry.image_size=32 --set model.base_features=8
 
@@ -12,11 +13,12 @@ Ported presets: all seven (``pdunet_parallel``, ``pdunet_radial``,
 ``fbp_unet_parallel``, ``sino_unet_parallel``, ``lpd_parallel``,
 ``pdunet_fan``, ``sino_unet_radial``); any config field
 can be overridden with ``--set section.field=value``. Training runs on the
-card (``--device cuda``) unless ``--device cpu`` is asked for. File-backed
-training (``--data``), the device meshes (``--devices``,
-``--angle-devices``) and TensorBoard (``--tb-dir``) are not ported yet and
-raise; ``--checkify`` and ``--dump-hlo`` are XLA tools with no counterpart
-here.
+card (``--device cuda``) unless ``--device cpu`` is asked for. ``--data``
+trains on the ground truth of a slice store (``data/datasets.py``: an npy
+directory, or an ``.h5`` file where h5py is installed) and validates on its
+``val`` split. The device meshes (``--devices``, ``--angle-devices``) and
+TensorBoard (``--tb-dir``) are not ported yet and raise; ``--checkify`` and
+``--dump-hlo`` are XLA tools with no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,8 +36,6 @@ from pdunet_tpu_torch.configs import ExperimentConfig, get_preset
 #: flags of the reference kept for parity that the port does not run yet →
 #: the ROADMAP.md item that ports them
 _UNPORTED = {
-    "data": "item 7 (file-backed data)",
-    "split": "item 7 (file-backed data)",
     "devices": "item 16 (data-parallel mesh)",
     "angle_devices": "item 17 (angle-sharded operators)",
     "tb_dir": "item 19 (TensorBoard logging)",
@@ -69,9 +69,11 @@ def parse_args(argv=None):
                    help="abort (exit 87) if no training step completes for this many "
                         "seconds; the run resumes from the last checkpoint. 0 disables "
                         "(default; env PDUNET_WATCHDOG_SECS overrides)")
+    p.add_argument("--data", default=None,
+                   help="slice store to train on (npy directory, or .h5 with h5py); "
+                        "else synthetic phantoms")
+    p.add_argument("--split", default="train", help="dataset split for --data")
     # the reference's flags the port does not run: each raises
-    p.add_argument("--data", default=None, help="not ported (ROADMAP item 7)")
-    p.add_argument("--split", default=None, help="with --data (not ported)")
     p.add_argument("--devices", type=int, default=None, help="not ported (ROADMAP item 16)")
     p.add_argument("--angle-devices", type=int, default=None,
                    help="not ported (ROADMAP item 17)")
@@ -96,6 +98,8 @@ def _refuse_unported(args):
 
 
 def resolve_config(args) -> ExperimentConfig:
+    """The run's config: ``--preset`` or ``--config``, then ``--set`` and
+    ``--ckpt-dir`` (the flags that ``infer`` shares)."""
     if args.config:
         config = ExperimentConfig.from_json(pathlib.Path(args.config).read_text())
     elif args.preset:
@@ -108,12 +112,6 @@ def resolve_config(args) -> ExperimentConfig:
     if args.ckpt_dir is not None:
         config = dataclasses.replace(
             config, train=dataclasses.replace(config.train, ckpt_dir=args.ckpt_dir))
-    if args.resume == "none" and config.train.ckpt_dir:
-        # a fresh run: refuse to clobber an existing run directory
-        ckpt = pathlib.Path(config.train.ckpt_dir)
-        if ckpt.exists() and any(ckpt.iterdir()):
-            raise SystemExit(
-                f"--resume none but {ckpt} is non-empty; remove it or use --resume auto")
     return config
 
 
@@ -121,6 +119,12 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
     config = resolve_config(args)
+    if args.resume == "none" and config.train.ckpt_dir:
+        # a fresh run: refuse to clobber an existing run directory
+        ckpt = pathlib.Path(config.train.ckpt_dir)
+        if ckpt.exists() and any(ckpt.iterdir()):
+            raise SystemExit(
+                f"--resume none but {ckpt} is non-empty; remove it or use --resume auto")
     if args.dump_config:
         print(config.to_json())
         return 0
@@ -133,7 +137,8 @@ def main(argv=None):
 
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         result = train(config, steps=args.steps, metrics_path=args.metrics, verbose=True,
-                       profile_dir=args.profile_dir, device=args.device)
+                       profile_dir=args.profile_dir, device=args.device, data=args.data,
+                       split=args.split)
     print(f"[done] final eval: {result.final_eval}")
     return 0
 

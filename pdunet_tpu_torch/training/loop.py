@@ -1,8 +1,10 @@
 """The training loop of the PyTorch port (port of ``pdunet_tpu/training/loop.py``
-without its mesh, file-backed data and TensorBoard branches).
+without its mesh and TensorBoard branches).
 
 One step: the batch is drawn on the device (``task.make_batch``: phantoms,
-the f32 measurement and the network's input), the loss runs the model (an
+the f32 measurement and the network's input) or, with ``train(data=...)``,
+made from a file-backed batch of ground-truth images
+(``task.batch_from_images``), and the loss runs the model (an
 unroll with A/σ and A†/σ in the preset's dtype, or a UNet, whose sino task
 adds an f32 FBP), the backward runs the same projector kernels again
 (vjp(A) = A†, vjp(A†) = A), the gradients are clipped to a global norm, and
@@ -27,6 +29,13 @@ the same generator after the phantoms, in training and validation batches
 alike, as the JAX task draws it from the batch's key. A resumed run
 therefore replays the same batches, noise included, and ``fixed_data``
 reuses step 0's.
+
+File-backed data (``data=``, a slice store of ``data/datasets.py``): a
+host thread (``HostPrefetcher``, two batches deep) reads shuffled batches
+of the split (``iterate_batches(seed=train.seed)``); the step copies each
+to the device, synthesises its measurement and draws the preset's noise
+from the step's generator. Validation runs noiselessly on whole batches of
+the ``val`` split (the first train batch when ``val`` holds less than one).
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import numpy as np
 import torch
 
 from pdunet_tpu_torch.configs import ExperimentConfig
+from pdunet_tpu_torch.data.datasets import SliceDataset, iterate_batches
+from pdunet_tpu_torch.data.native import HostPrefetcher
 from pdunet_tpu_torch.ops.metrics import psnr, ssim
 from pdunet_tpu_torch.training.checkpoint import CheckpointManager
 from pdunet_tpu_torch.training.tasks import Task, build_task
@@ -239,22 +250,57 @@ def _profile_activities(device):
     return acts
 
 
+def _file_batches(data: str, split: str, tc, image_size: int):
+    """(train dataset, validation image batches) of the slice store ``data``."""
+    train_ds = SliceDataset(data, split=split)
+    try:
+        if train_ds.image_size != image_size:
+            raise ValueError(f"dataset slices are {train_ds.image_size}² but config expects "
+                             f"{image_size}²")
+        if len(train_ds) < tc.batch_size:
+            # iterate_batches(drop_remainder=True) would never yield, and the
+            # prefetcher would wait forever with no diagnostic
+            raise ValueError(f"{split!r} split has {len(train_ds)} slices < batch_size "
+                             f"{tc.batch_size}")
+        n_val = max(1, -(-tc.val_slices // tc.batch_size))
+        # a read error here propagates: validating on the train batch instead
+        # would pick the best checkpoint on training data with no diagnostic
+        val_ds = SliceDataset(data, split="val")
+        try:
+            batches = iterate_batches(val_ds, tc.batch_size, shuffle=False)
+            val_images = [next(batches)
+                          for _ in range(min(n_val, len(val_ds) // tc.batch_size))]
+        finally:
+            val_ds.close()
+        if not val_images:  # a tiny store: validate on the first train batch
+            val_images = [next(iterate_batches(train_ds, tc.batch_size, shuffle=False))]
+    except BaseException:
+        train_ds.close()
+        raise
+    return train_ds, val_images
+
+
 def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: bool = False,
           metrics_path: Optional[str] = None, verbose: bool = True,
-          profile_dir: Optional[str] = None, device="cuda") -> TrainResult:
+          profile_dir: Optional[str] = None, device="cuda", data: Optional[str] = None,
+          split: str = "train") -> TrainResult:
     """Train one experiment preset end to end on ``device``.
 
     ``steps`` overrides ``train.steps`` (and the schedule's length).
     ``fixed_data=True`` reuses step 0's batch every step (the overfit
-    smoke test) and evaluates on it. With ``train.ckpt_dir`` the run
-    checkpoints every ``ckpt_every`` steps (keep ``max_checkpoints``),
-    resumes from the latest checkpoint there, and keeps the best
-    validation PSNR's weights in ``best/`` with ``best.json``.
-    ``profile_dir``: a ``torch.profiler`` trace of steps 10-15 (counted
+    smoke test) and evaluates on it. ``data``: the path of a slice store
+    (``data/datasets.py``) whose ``split`` holds the ground truth, in place
+    of synthetic phantoms; validation then reads its ``val`` split. With
+    ``train.ckpt_dir`` the run checkpoints every ``ckpt_every`` steps (keep
+    ``max_checkpoints``), resumes from the latest checkpoint there, and
+    keeps the best validation PSNR's weights in ``best/`` with
+    ``best.json``. ``profile_dir``: a ``torch.profiler`` trace of steps 10-15 (counted
     from the start or resume step) as ``trace.json`` there."""
     tc = config.train
     n_steps = tc.steps if steps is None else steps
     device = torch.device(device)
+    if data is not None and fixed_data:
+        raise ValueError("fixed_data and data= are mutually exclusive")
     task = build_task(config, device=device)
     state = build_state(task, n_steps=n_steps,
                         init_seed=derive_seed(tc.seed, INIT_STREAM))
@@ -279,14 +325,8 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
             prev = json.loads(best_json.read_text())
             best_psnr, best_step = prev["psnr"], prev["step"]
 
-    step_fn = make_train_step(task)
+    step_fn = make_train_step(task, from_images=data is not None)
     eval_fn = make_eval_step(task)
-    # a fixed validation set of ≥ val_slices held-out slices, as whole batches
-    n_val = max(1, -(-tc.val_slices // tc.batch_size))
-    val_seed = derive_seed(tc.seed, VAL_STREAM)
-    with torch.no_grad():
-        val_batches = [task.make_batch(_generator(device, derive_seed(val_seed, j)))
-                       for j in range(n_val)]
 
     def run_eval(batches):
         sums = {}
@@ -300,9 +340,24 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
 
     history = []
     mfile = open(metrics_path, "a") if metrics_path else None
-    prof = None
-    t0 = time.perf_counter()
+    prof = train_ds = prefetcher = None
     try:
+        # a fixed validation set of ≥ val_slices held-out slices, as whole
+        # batches (noiseless when they come from the store)
+        with torch.no_grad():
+            if data is not None:
+                train_ds, val_images = _file_batches(data, split, tc, task.image_size)
+                val_batches = [task.batch_from_images(torch.as_tensor(v, device=device))
+                               for v in val_images]
+                batch_iter = iterate_batches(train_ds, tc.batch_size, shuffle=True,
+                                             seed=tc.seed)
+                prefetcher = HostPrefetcher(lambda _i: next(batch_iter), depth=2)
+            else:
+                n_val = max(1, -(-tc.val_slices // tc.batch_size))
+                val_seed = derive_seed(tc.seed, VAL_STREAM)
+                val_batches = [task.make_batch(_generator(device, derive_seed(val_seed, j)))
+                               for j in range(n_val)]
+        t0 = time.perf_counter()
         for i in range(start_step, n_steps):
             if profile_dir and i == start_step + 10:
                 prof = torch.profiler.profile(activities=_profile_activities(device))
@@ -312,7 +367,13 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
                 os.makedirs(profile_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
                 prof = None
-            metrics = step_fn(state, data_generator(i))
+            if prefetcher is not None:
+                # the host batch goes to the device here; the step draws
+                # the preset's noise from the step's generator
+                images = torch.as_tensor(next(prefetcher), device=device)
+                metrics = step_fn(state, images, generator=data_generator(i))
+            else:
+                metrics = step_fn(state, data_generator(i))
             watchdog.beat()
 
             if (i + 1) % tc.log_every == 0 or i == n_steps - 1:
@@ -344,6 +405,10 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
             prof.stop()
         if mfile:
             mfile.close()
+        if prefetcher is not None:
+            prefetcher.close()
+        if train_ds is not None:
+            train_ds.close()
 
     if fixed_data:
         with torch.no_grad():

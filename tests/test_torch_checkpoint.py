@@ -196,14 +196,12 @@ def test_train_cli_dump_config_and_radial(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--data", "x.h5"], "item 7"),
-    (["--split", "val"], "item 7"),
     (["--devices", "2"], "item 16"),
     (["--angle-devices", "2"], "item 17"),
     (["--tb-dir", "tb"], "item 19"),
     (["--checkify"], "XLA tool"),
     (["--dump-hlo", "hlo"], "XLA tool"),
-], ids=["data", "split", "devices", "angle_devices", "tb_dir", "checkify", "dump_hlo"])
+], ids=["devices", "angle_devices", "tb_dir", "checkify", "dump_hlo"])
 def test_unported_train_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(["--preset", "pdunet_parallel", "--device", "cpu", *flags])

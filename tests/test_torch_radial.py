@@ -205,8 +205,14 @@ def test_radial_ops_bundle_and_fbp_match_jax(bf16, tol):
 
 
 def test_unported_nufft_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        make_radial_ops(RadialGeometry(**GEOM), impl="gridding", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        make_radial_ops(RadialGeometry(image_size=16, n_spokes=8, samples_per_spoke=31),
-                        device="cpu")
+    """The gridding NUFFT is ported (tests/test_torch_nufft_gridding.py): it
+    builds on request and, with a warning, for an odd spoke length; an
+    unknown impl raises."""
+    assert make_radial_ops(RadialGeometry(**GEOM), impl="gridding",
+                           device="cpu").sino_shape == (24, 64)
+    with pytest.warns(UserWarning, match="even samples_per_spoke"):
+        ops = make_radial_ops(RadialGeometry(image_size=16, n_spokes=8, samples_per_spoke=31),
+                              device="cpu")
+    assert ops.sino_shape == (8, 31)
+    with pytest.raises(ValueError, match="unknown NUFFT impl"):
+        make_radial_ops(RadialGeometry(**GEOM), impl="nudft", device="cpu")

@@ -150,8 +150,8 @@ def test_radial_make_batch_is_seeded_and_phased():
 def test_kspace_noise_is_refused():
     """k-space noise is ported: kspace_snr_db > 0 builds, make_batch draws
     the noise from its generator at that SNR, and batch_from_images stays
-    noiseless without one. What stays refused is the gridding NUFFT that an
-    odd spoke length would need (ROADMAP item 14)."""
+    noiseless without one. An odd spoke length builds on the gridding NUFFT,
+    with a warning, and its noise holds the same SNR."""
     cfg = _small(get_preset("pdunet_radial")).override({"train.kspace_snr_db": 30.0})
     task = build_task(cfg, device="cpu")
     a = task.make_batch(torch.Generator().manual_seed(1))
@@ -160,8 +160,14 @@ def test_kspace_noise_is_refused():
     snr = 10 * torch.log10((clean["sino"].abs() ** 2).mean((-2, -1))
                            / (noise.abs() ** 2).mean((-2, -1)))
     assert torch.allclose(snr, torch.full_like(snr, 30.0), atol=0.5), snr
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_task(cfg.override({"geometry.samples_per_spoke": 63}), device="cpu")
+    with pytest.warns(UserWarning, match="even samples_per_spoke"):
+        odd = build_task(cfg.override({"geometry.samples_per_spoke": 63}), device="cpu")
+    a = odd.make_batch(torch.Generator().manual_seed(1))
+    noise = a["sino"] - odd.batch_from_images(a["image_c"])["sino"]
+    assert a["sino"].shape == (2, 24, 63)
+    snr = 10 * torch.log10((a["sino"] - noise).abs().pow(2).mean((-2, -1))
+                           / noise.abs().pow(2).mean((-2, -1)))
+    assert torch.allclose(snr, torch.full_like(snr, 30.0), atol=0.5), snr
 
 
 # -- (i) nonnegative phantoms --------------------------------------------------

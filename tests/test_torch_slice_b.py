@@ -196,9 +196,9 @@ def test_sino_prediction_keeps_the_measured_rows():
 
 
 def test_slice_b_refusals():
-    """sino_unet stays undefined on fan beam; what stays unported raises:
-    the gridding NUFFT (item 14: impl="gridding", or an odd spoke length)
-    and training's mesh flag (item 16)."""
+    """sino_unet stays undefined on fan beam; an odd spoke length builds
+    sino_unet_radial on the gridding NUFFT with a warning (item 14 is
+    ported); what stays unported raises: training's mesh flag (item 16)."""
     from pdunet_tpu_torch import train
     from pdunet_tpu_torch.geometry import RadialGeometry
     from pdunet_tpu_torch.ops.nufft import make_radial_ops
@@ -206,12 +206,12 @@ def test_slice_b_refusals():
     with pytest.raises(ValueError, match="fan"):
         build_task(get_preset("sino_unet_parallel").override({"geometry.kind": "fan"}),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_task(_small(get_preset("sino_unet_radial"), **{"geometry.samples_per_spoke": 47}),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_radial_ops(RadialGeometry(image_size=N, n_spokes=10), impl="gridding",
-                        device="cpu")
+    with pytest.warns(UserWarning, match="even samples_per_spoke"):
+        task = build_task(_small(get_preset("sino_unet_radial"),
+                                 **{"geometry.samples_per_spoke": 47}), device="cpu")
+    assert task.make_batch(torch.Generator().manual_seed(0))["k_in_w"].shape[-1] == 47
+    assert type(make_radial_ops(RadialGeometry(image_size=N, n_spokes=10), impl="gridding",
+                                device="cpu").plan).__name__ == "NufftPlan"
     with pytest.raises(NotImplementedError, match="item 16"):
         train.main(["--preset", "lpd_parallel", "--device", "cpu", "--devices", "4"])
 

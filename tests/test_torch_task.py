@@ -155,11 +155,13 @@ def test_build_task_defaults_to_cuda():
 
 
 def test_unported_task_kinds_raise():
-    """Every preset builds; an odd spoke length needs the gridding NUFFT
-    (not ported), and a model kind without a task raises."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_task(get_preset("sino_unet_radial").override(
-            {"geometry.samples_per_spoke": 511}), device="cpu")
+    """Every preset builds, an odd spoke length too (on the gridding NUFFT,
+    with a warning); a model kind without a task raises."""
+    with pytest.warns(UserWarning, match="even samples_per_spoke"):
+        task = build_task(get_preset("sino_unet_radial").override(
+            {"geometry.samples_per_spoke": 47, "geometry.image_size": 32,
+             "geometry.n_angles": 40, "model.base_features": 8}), device="cpu")
+    assert task.sigma is None
     with pytest.raises(NotImplementedError):
         build_task(get_preset("pdunet_fan").override({"model.kind": "unet3d"}), device="cpu")
 
