@@ -164,6 +164,31 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``index_add_``; pdunet_radial at 511 samples served at batch 4 and
      trained 10 steps with no projector kernel launched, and its recon time
      and profile at batch 4.
+ 19. angle-sharded operators at full width, G = 2: (a) here, on each shard
+     of pdunet_parallel's sparse pair plan (P = 23 per group: 12 rows per
+     shard, the second shard's last a zero pad row), pdunet_fan's backing
+     plan (sign +1 pairs) and pdunet_radial's 128-spoke fourier-slice plan
+     (the per-angle kernels), each kernel of rows 1-4 against its plain
+     version, f32 (split route, ≤ 1e-5) and bf16 (tensor-core route,
+     ≤ 5e-3), from the shard's own tables, bit-equal to the plain
+     builders'; (b) in 2 gloo ranks on this card (mesh 1 x 2, ``python -m
+     pdunet_tpu_torch.parallel.check``), the sharded A, A†, fbp and both
+     vjps of the three presets' bundles in f32 and bf16 against the
+     unsharded ones here (≤ 1e-5 / ≤ 5e-3), the f32 dot test (y = A x +
+     noise, ≤ 1e-5), vjp(A_sh) = A†_sh and vjp(A†_sh) = A_sh (≤ 1e-6), each
+     rank's launches (2 forward and 4 adjoint group calls on the dtype's
+     route, no other projector kernel) and tables (its shard's rows only),
+     and per-rank CUDA-event times (time-shared on one card, not scaling);
+ 20. sharded training and serving of pdunet_parallel at full width (256²,
+     batch 4): one f32 SGD step on the (2, 1), (1, 2) and (2, 2) meshes (2
+     and 4 gloo ranks on this card) and on a world-1 NCCL group against the
+     single-device step here (loss rtol 1e-4, parameters atol 1e-4, σ the
+     same on every rank), three bf16 preset steps on (2, 2) and two of
+     pdunet_radial on (1, 2) with finite losses and every kernel of the
+     path launched in every rank; host ms per step for each mesh; then
+     ``train --devices 2 --angle-devices 2 --steps 3 --ckpt-dir``, a
+     single-device ``infer --ckpt-dir`` of its checkpoint, and ``infer
+     --devices 2`` equal to ``--devices 1`` (PSNR rtol 1e-5, SSIM 1e-4).
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
@@ -173,7 +198,10 @@ slice-B path and on pdunet_fan's, their dense-plan split-route times and
 their times on the fan backing plans, rows 3-4 their launches on
 sino_unet_radial's path and their times on its dense plan, and all four
 their launches on the file-backed paths, rows 3-4 also on the gridding
-path, where they must not run), then the card's name and power limit, then
+path, where they must not run; rows 1-4 also their launches in each rank of
+one sharded step per mesh, their sharded operators' per-rank times and
+their worst error against the plain version over the shards), then the
+card's name and power limit, then
 the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -2897,6 +2925,330 @@ def gridding_phase(dev, card, gen):
     return st
 
 
+# -- 19-20. angle-sharded operators and sharded training / serving ---------
+
+#: the wrappers of rows 1-4 of the kernel table, which the sharded paths run
+ROWS_1_4 = ("project_pair_group", "backproject_pair_group", "project_group",
+            "backproject_group")
+#: overrides of every preset the mesh phases run (none: full width)
+MESH_OVERRIDES = {}
+#: the ops cases of phase 19: name → (preset whose sparse geometry, operand dtype)
+MESH_OPS = {"parallel_f32": ("pdunet_parallel", "float32"),
+            "parallel_bf16": ("pdunet_parallel", "bfloat16"),
+            "fan_f32": ("pdunet_fan", "float32"), "fan_bf16": ("pdunet_fan", "bfloat16"),
+            "radial_f32": ("pdunet_radial", "float32"),
+            "radial_bf16": ("pdunet_radial", "bfloat16")}
+MESH_STEP_SEED, MESH_INIT_SEED, MESH_LR = 7, 1, 1e-2
+#: the backend of the world-1 group (NCCL's one check on a single card)
+MESH_WORLD1_BACKEND = "nccl"
+MESH_DIST = ["--dist-backend", "gloo", "--dist-timeout", "300"]
+
+
+def _mesh_config(preset, **over):
+    from pdunet_tpu_torch.configs import get_preset
+
+    return get_preset(preset).override({**MESH_OVERRIDES, **over})
+
+
+def _launch_check(cases, world, tmp, dev, backend="gloo"):
+    """Run ``cases`` in ``world`` ranks of ``python -m
+    pdunet_tpu_torch.parallel.check`` on ``dev``; each rank's results."""
+    from pdunet_tpu_torch.parallel.launch import launch
+
+    out = tmp / f"world{world}_{backend}"
+    out.mkdir()
+    torch.save(dict(device=dev.type, backend=backend, timeout_s=300.0, out=str(out),
+                    cases=cases), out / "job.pt")
+    t0 = time.perf_counter()
+    launch("pdunet_tpu_torch.parallel.check", [str(out / "job.pt")], world, timeout_s=900)
+    print(f"[chip_smoke] {world} ranks ({backend}) ran {[c['name'] for c in cases]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(world)]
+
+
+def _mesh_geometry(preset):
+    """The preset's sparse geometry, as the check worker's ``geometry``."""
+    import dataclasses
+
+    from pdunet_tpu_torch.training.tasks import build_geometries
+
+    config = _mesh_config(preset)
+    _, sparse = build_geometries(config.geometry)
+    return config, sparse, dict(kind=config.geometry.kind, **dataclasses.asdict(sparse))
+
+
+def shard_kernel_phase(dev, gen):
+    """Phase 19a: every kernel of rows 1-4 against its plain version on each
+    shard of G = 2 (``shard_plan``), on the card: the pair kernels on
+    pdunet_parallel's sparse plan (both routes; the second shard's last row
+    a zero pad row) and pdunet_fan's backing plan (sign +1 pairs), the
+    per-angle kernels on pdunet_radial's fourier-slice plan; each shard's
+    tables bit-equal to the plain builders'."""
+    from pdunet_tpu_torch.ops.nufft import make_radial_ops
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.ops.radon.fan import make_fan_ops
+    from pdunet_tpu_torch.ops.radon.parallel import make_parallel_ops
+    from pdunet_tpu_torch.parallel.angle_shard import shard_plan
+
+    errs, rows = {}, {}
+    plans = {}
+    for preset, make in (("pdunet_parallel", make_parallel_ops), ("pdunet_fan", make_fan_ops),
+                         ("pdunet_radial", make_radial_ops)):
+        config, sparse, _ = _mesh_geometry(preset)
+        plan = make(sparse, dtype=torch.float32, device=dev).plan
+        plans[preset] = (getattr(plan, "par_plan", plan), config.train.batch_size
+                         * (2 if preset == "pdunet_radial" else 1))
+    for preset, (plan, B) in plans.items():
+        N, S = plan.meta["N"], plan.meta["S"]
+        pairs = plan.meta["use_pairs"]
+        f = torch.randn(B, N, N, generator=gen, device=dev)
+        for r in range(2):
+            sp = shard_plan(plan, 2, r)
+            key = "P_" if pairs else "A_"
+            n_rows = {g: sp.meta[key + g] for g in "xy"}
+            rows[f"{preset}/shard{r}"] = {
+                "rows": n_rows, "of": {g: plan.meta[key + g] for g in "xy"},
+                "pad_rows": {g: n_rows[g] - (min((r + 1) * n_rows[g], plan.meta[key + g])
+                                             - min(r * n_rows[g], plan.meta[key + g]))
+                             for g in "xy"}}
+            p = {g: torch.randn(B, (2 if pairs else 1) * n_rows[g], S, generator=gen,
+                                device=dev) for g in "xy"}
+            if pairs:
+                fwd, adj = pair_calls(ck, sp, pair_tables(ck, sp), f, p)
+                kernels = {"project_pair_group": (fwd, ck.project_pair_group,
+                                                  ck._project_pair_group),
+                           "backproject_pair_group": (adj, ck.backproject_pair_group,
+                                                      ck._backproject_pair_group)}
+            else:
+                fwd, adj = group_calls(ck, sp, group_tables(ck, sp), f, p)
+                kernels = {"project_group": (fwd, ck.project_group, ck._project_group),
+                           "backproject_group": (adj, ck.backproject_group,
+                                                 ck._backproject_group)}
+            print(f"[chip_smoke] {preset} shard {r} of 2: {rows[f'{preset}/shard{r}']}")
+            check_kernels(kernels, errs)
+    return {"rows": rows, "errs": {f"{k[0]}/{k[1]}": v for k, v in errs.items()}}
+
+
+def mesh_ops_phase(dev, gen):
+    """Phase 19b: the angle-sharded operator bundles (A, A†, fbp and both
+    vjps) in 2 gloo ranks on the card, mesh (1, 2), against the unsharded
+    bundles here on the same inputs (rel ≤ 1e-5 f32, ≤ 5e-3 bf16), the f32
+    dot test on the sharded pair (y = A x + noise, ≤ 1e-5), vjp(A_sh) =
+    A†_sh and vjp(A†_sh) = A_sh (≤ 1e-6), and each rank's launch counts
+    (2 forward and 4 adjoint group calls, on the dtype's route) and trig
+    tables (its own shard's rows only); per-rank CUDA-event times of the
+    sharded A and A† (both ranks share the card: not a scaling number).
+    Then phase 20's two-rank steps run in the same launch."""
+    from pdunet_tpu_torch.ops.nufft import make_radial_ops
+    from pdunet_tpu_torch.ops.radon.fan import make_fan_ops
+    from pdunet_tpu_torch.ops.radon.parallel import make_parallel_ops
+
+    make = {"parallel": make_parallel_ops, "fan": make_fan_ops, "radial": make_radial_ops}
+    refs, cases = {}, []
+    for name, (preset, dtype) in MESH_OPS.items():
+        config, sparse, spec = _mesh_geometry(preset)
+        B = config.train.batch_size
+        ops = make[spec["kind"]](sparse, dtype=getattr(torch, dtype), device=dev)
+        N = sparse.image_size
+        x = torch.randn(B, N, N, generator=gen, device=dev)
+        if spec["kind"] == "radial":
+            x = torch.complex(x, torch.randn(B, N, N, generator=gen, device=dev))
+        with torch.no_grad():
+            ax = ops.A(x)
+            y = ax + 0.1 * ax.abs().mean() * torch.randn(ax.shape, generator=gen, device=dev,
+                                                          dtype=ax.dtype)
+            plan = getattr(ops.plan, "par_plan", ops.plan)
+            key = "P_" if plan.meta["use_pairs"] else "A_"
+            refs[name] = {"x": x, "y": y, "A": ax, "At": ops.At(y), "fbp": ops.fbp(y),
+                          "dtype": dtype, "kind": spec["kind"],
+                          "shard_rows": {g: math.ceil(plan.meta[key + g] / 2) for g in "xy"}}
+        cases.append(dict(kind="ops", name=name, geometry=spec, dtype=dtype, mesh=(1, 2),
+                          x=x.cpu(), y=y.cpu(), time=True))
+    return refs, cases
+
+
+def check_mesh_ops(refs, ranks, card):
+    """The phase 19b checks on the ranks' results; returns the stats."""
+    stats = {}
+    for name, ref in refs.items():
+        tname = ref["dtype"]
+        got = ranks[0][name]
+        errs = {k: rel(got[k].to(ref[k].device), ref[k]) for k in ("A", "At", "fbp")}
+        for k, e in errs.items():
+            check(e <= TOL[tname], f"sharded {name} {k}: rel {e} > {TOL[tname]}")
+        vjp = {"A": rel(got["vjp_A"], got["At"]), "At": rel(got["vjp_At"], got["A"])}
+        check(max(vjp.values()) <= 1e-6, f"sharded {name}: vjp pairing {vjp}")
+        dot = None
+        if tname == "float32":
+            x, y = ref["x"].cpu().to(torch.complex128), ref["y"].cpu().to(torch.complex128)
+            lhs = torch.vdot(got["A"].to(torch.complex128).flatten(), y.flatten())
+            rhs = torch.vdot(x.flatten(), got["At"].to(torch.complex128).flatten())
+            dot = float(abs(lhs - rhs) / abs(lhs))
+            check(dot <= 1e-5, f"sharded {name}: dot test {dot}")
+        route = "tc" if tname == "bfloat16" else "split"
+        fwd, adj = (("project_pair_group", "backproject_pair_group") if ref["kind"] != "radial"
+                    else ("project_group", "backproject_group"))
+        per_rank = []
+        for r, res in enumerate(ranks):
+            c = res[name]["launches"]
+            i = 1 if route == "tc" else 2
+            check(c[fwd][0] == c[fwd][i] == 2 and c[adj][0] == c[adj][i] == 4,
+                  f"sharded {name} rank {r}: launches {c}")
+            others = [k for k in c if k not in (fwd, adj)]
+            check(all(c[k][0] == 0 for k in others), f"sharded {name} rank {r}: {c}")
+            rows = res[name]["table_rows"]
+            mine = f"G2r{res[name]['coords'][1]}/"
+            check(rows and all(k.startswith(mine) and v == ref["shard_rows"][k[-1]]
+                               for k, v in rows.items()),
+                  f"sharded {name} rank {r}: tables {rows}, want {ref['shard_rows']} rows")
+            check("ms" in res[name], f"sharded {name} rank {r}: no CUDA-event times")
+            per_rank.append({"launches": {fwd: c[fwd], adj: c[adj]}, "table_rows": rows,
+                             "ms": res[name].get("ms")})
+        print(f"[check] sharded {name} (mesh 1x2, 2 gloo ranks on one card): rel {errs}, "
+              f"vjp {vjp}, dot {dot}; per rank {per_rank} (times are time-shared on one "
+              f"card, not scaling) ({card})")
+        stats[name] = {"rel": errs, "vjp_rel": vjp, "dot_rel": dot, "per_rank": per_rank}
+    return stats
+
+
+def _single_step(dev, config):
+    """One f32 SGD step on this card from the mesh phases' weights and seed."""
+    from pdunet_tpu_torch.training import loop
+    from pdunet_tpu_torch.training.tasks import build_task
+
+    task = build_task(config, device=dev)
+    task.init_params(torch.Generator().manual_seed(MESH_INIT_SEED))
+    state = loop.TrainState(task.model, torch.optim.SGD(task.model.parameters(), lr=MESH_LR),
+                            lambda i: MESH_LR)
+    m = loop.make_train_step(task)(state, torch.Generator(device=dev).manual_seed(
+        MESH_STEP_SEED))
+    return task, {k: float(v) for k, v in m.items()}
+
+
+def _step_case(name, config, mesh, steps=3):
+    return dict(kind="step", name=name, config=config.to_json(), mesh=mesh,
+                init_seed=MESH_INIT_SEED, lr=MESH_LR, seed=MESH_STEP_SEED, steps=steps)
+
+
+def check_steps(names, results, single, card):
+    """Each f32 sharded step against the single-device step (loss and
+    grad_norm rtol 1e-4, parameters atol 1e-4, the tolerances of
+    __graft_entry__.py), σ the same on every rank; returns per-mesh stats."""
+    task, m1 = single
+    want = task.model.state_dict()
+    stats = {}
+    for name in names:
+        ranks = results[name]
+        m = ranks[0]["metrics"][0]
+        loss_rel = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
+        param_err = max(float((ranks[0]["params"][k] - v.cpu()).abs().max())
+                        for k, v in want.items())
+        gn_rel = abs(m["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"])
+        check(loss_rel <= 1e-4, f"{name}: loss {m['loss']} vs {m1['loss']}")
+        check(gn_rel <= 1e-4, f"{name}: grad_norm {m['grad_norm']} vs {m1['grad_norm']}")
+        check(param_err <= 1e-4, f"{name}: parameters differ by {param_err}")
+        sigmas = [r["sigma"] for r in ranks]
+        check(len(set(sigmas)) == 1 and abs(sigmas[0] - task.sigma) <= 1e-6 * task.sigma,
+              f"{name}: sigma {sigmas} vs {task.sigma}")
+        stats[name] = _step_stats(name, ranks, card, loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                                  param_err=param_err)
+    return stats
+
+
+def _step_stats(name, ranks, card, **extra):
+    host = [sum(r["host_ms"]) / len(r["host_ms"]) for r in ranks]
+    launches = [r["launches"] for r in ranks]
+    print(f"[time] sharded step {name} (mesh {ranks[0]['mesh']}, {len(ranks)} rank(s) on "
+          f"one card): host ms per step by rank {host}; launches per rank in one "
+          f"step {launches}; {extra} ({card})")
+    return {"mesh": ranks[0]["mesh"], "host_ms_per_step": host, "launches_per_rank": launches,
+            "metrics": ranks[0]["metrics"], **extra}
+
+
+def mesh_phases(dev, card, gen):
+    """Phases 19-20: the angle-sharded operators and sharded training and
+    serving of pdunet_parallel at full width (256², batch 4) in gloo ranks
+    that share this card, and a world-1 NCCL group."""
+    import tempfile
+
+    from pdunet_tpu_torch import infer
+    from pdunet_tpu_torch import train as train_cli
+    from pdunet_tpu_torch.training.checkpoint import CheckpointManager
+
+    out = {"shard_kernels": shard_kernel_phase(dev, gen)}
+    f32 = _mesh_config("pdunet_parallel", **{"model.use_bfloat16": False})
+    bf16 = _mesh_config("pdunet_parallel")
+    radial = _mesh_config("pdunet_radial")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh-") as tmp:
+        tmp = pathlib.Path(tmp)
+        refs, cases2 = mesh_ops_phase(dev, gen)
+        steps2 = {"f32_21": (f32, (2, 1)), "f32_12": (f32, (1, 2))}
+        cases2 += [_step_case(n, c, m) for n, (c, m) in steps2.items()]
+        cases2.append(_step_case("radial_bf16_12", radial, (1, 2), steps=2))
+        r2 = _launch_check(cases2, 2, tmp, dev)
+        res = {c["name"]: [r[c["name"]] for r in r2] for c in cases2}
+        out["sharded_ops"] = check_mesh_ops(refs, r2, card)
+        cases4 = [_step_case("f32_22", f32, (2, 2)), _step_case("bf16_22", bf16, (2, 2))]
+        r4 = _launch_check(cases4, 4, tmp, dev)
+        res.update({c["name"]: [r[c["name"]] for r in r4] for c in cases4})
+        nccl = [_step_case("f32_11_nccl", f32, (1, 1), steps=2)]
+        r1 = _launch_check(nccl, 1, tmp, dev, backend=MESH_WORLD1_BACKEND)
+        res["f32_11_nccl"] = [r1[0]["f32_11_nccl"]]
+        single = _single_step(dev, f32)
+        out["steps"] = check_steps(["f32_21", "f32_12", "f32_22", "f32_11_nccl"], res, single,
+                                   card)
+        for name in ("bf16_22", "radial_bf16_12"):
+            for r in res[name]:
+                check(all(math.isfinite(m["loss"]) and m["grad_norm"] > 0
+                          for m in r["metrics"]), f"{name}: {r['metrics']}")
+            out["steps"][name] = _step_stats(name, res[name], card)
+        for name, rows in (("bf16_22", ("project_pair_group", "backproject_pair_group")),
+                           ("radial_bf16_12", ("project_group", "backproject_group"))):
+            for r in res[name]:
+                check(all(r["launches"][k][0] > 0 for k in rows),
+                      f"{name}: a kernel of the path did not launch: {r['launches']}")
+
+        # the entry points: train on the 2x2 mesh, infer its checkpoint on one device,
+        # and infer --devices 2 against --devices 1
+        ck = tmp / "ck"
+        t0 = time.perf_counter()
+        check(train_cli.main(["--preset", "pdunet_parallel", "--device", dev.type, "--devices", "2",
+                              "--angle-devices", "2", "--steps", "3", "--ckpt-dir", str(ck),
+                              "--metrics", str(tmp / "m.jsonl"), "--set", "train.log_every=1",
+                              "--set", "train.eval_every=3", *_mesh_sets(), *MESH_DIST]) == 0,
+              "train --devices 2 --angle-devices 2 failed")
+        train_s = time.perf_counter() - t0
+        lines = [json.loads(s) for s in (tmp / "m.jsonl").read_text().splitlines()]
+        check([m["step"] for m in lines] == [1, 2, 3, 3] and
+              all(math.isfinite(v) for m in lines for v in m.values()),
+              f"train 2x2 metrics {lines}")
+        check(CheckpointManager(str(ck)).latest_step() == 3, "train 2x2: no step-3 checkpoint")
+        serve = {}
+        for label, extra in (("devices_1", ["--devices", "1"]),
+                             ("devices_2", ["--devices", "2", *MESH_DIST])):
+            js = tmp / f"{label}.json"
+            t0 = time.perf_counter()
+            check(infer.main(["--preset", "pdunet_parallel", "--device", dev.type,
+                              "--ckpt-dir", str(ck),
+                              "--n-slices", "8", "--json-out", str(js), *_mesh_sets(),
+                              *extra]) == 0, f"infer {label} failed")
+            serve[label] = {**json.loads(js.read_text()), "s": time.perf_counter() - t0}
+        t1, t2 = serve["devices_1"], serve["devices_2"]
+        check(t1["ckpt_step"] == 3 and math.isfinite(t1["psnr_mean"]), f"infer {t1}")
+        check(abs(t2["psnr_mean"] - t1["psnr_mean"]) <= 1e-5 * abs(t1["psnr_mean"]) and
+              abs(t2["ssim_mean"] - t1["ssim_mean"]) <= 1e-4 * abs(t1["ssim_mean"]),
+              f"infer --devices 2 {t2} vs --devices 1 {t1}")
+        print(f"[chip_smoke] train --devices 2 --angle-devices 2 (3 steps, gloo, one card): "
+              f"{train_s:.1f} s, metrics {lines}; infer on its checkpoint: {serve} ({card})")
+        out["entry_points"] = {"train_2x2_s": train_s, "train_2x2_metrics": lines,
+                               "infer": serve}
+    return out
+
+
+def _mesh_sets():
+    return [a for k, v in MESH_OVERRIDES.items() for a in ("--set", f"{k}={v}")]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -3311,6 +3663,8 @@ def main():
     elapsed("phases 17-17b (file-backed pdunet_parallel and pdunet_radial)")
     gridding = gridding_phase(dev, card, gen)
     elapsed("phase 18 (gridding NUFFT)")
+    mesh = mesh_phases(dev, card, gen)
+    elapsed("phases 19-20 (angle-sharded operators, sharded training and serving)")
     for e in entries + radial_entries:
         preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
                   "pdunet_parallel", "project_group": "pdunet_radial",
@@ -3368,6 +3722,18 @@ def main():
                     "fwd_split" if i == 0 else "adj_split"]}
             e["dense_radial_split"] = {k: v for k, v in slice_c["radial_dense_plan"].items()
                                        if k.startswith(e["name"])}
+        if e["name"] in ROWS_1_4:
+            # phases 19-20: this kernel's launches in each rank of one sharded
+            # step per mesh, its sharded operators' per-rank times, and its
+            # worst error against the plain version over the shards
+            e["launches_per_rank_sharded_step"] = {
+                name: [r[e["name"]] for r in st["launches_per_rank"]]
+                for name, st in mesh["steps"].items()}
+            e["sharded_ops"] = {name: [r["ms"] for r in st["per_rank"]]
+                                for name, st in mesh["sharded_ops"].items()
+                                if e["name"] in st["per_rank"][0]["launches"]}
+            e["shard_plain_err"] = {k: v for k, v in mesh["shard_kernels"]["errs"].items()
+                                    if k.startswith(e["name"] + "/")}
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3383,6 +3749,7 @@ def main():
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
                       "slice_c": slice_c, "data_path": data_paths, "gridding": gridding,
+                      "mesh": mesh,
                       "build_s": build_s, "phase_s": phase_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

@@ -21,6 +21,12 @@ Usage:
       --data store --split test --hu-window 40 400 --export-png out/
   python -m pdunet_tpu_torch.infer --preset pdunet_parallel --device cpu \\
       --set geometry.image_size=32 --json-out metrics.json
+  python -m pdunet_tpu_torch.infer --preset pdunet_parallel --devices 2 --n-slices 32
+
+``--devices N`` reconstructs on N ranks (processes, as ``train --devices``
+starts them): each reconstructs its B/N rows of every batch with the same
+weights, and the per-slice PSNR/SSIM are gathered to rank 0 in the
+batch's order, so the table is the single-device one.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ import torch
 
 from pdunet_tpu_torch.data.pipeline import MU_WATER, mu_to_hu, normalize_ct_window
 from pdunet_tpu_torch.ops.metrics import psnr, ssim
+from pdunet_tpu_torch.parallel.launch import add_dist_args, run_ranks
+from pdunet_tpu_torch.parallel.sharding import gather_batch, make_mesh, replicate, shard_batch
 from pdunet_tpu_torch.training.checkpoint import CheckpointManager
 from pdunet_tpu_torch.training.loop import build_state, derive_seed
 from pdunet_tpu_torch.training.tasks import build_task
@@ -76,8 +84,8 @@ def parse_args(argv=None):
     p.add_argument("--json-out", default=None, help="write metrics JSON here")
     p.add_argument("--device", default="cuda")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel eval over N devices: not ported (ROADMAP item 16); "
-                        "1 runs on --device")
+                   help="data-parallel eval: shard each batch over N ranks")
+    add_dist_args(p)
     p.add_argument("--watchdog-secs", type=float,
                    default=float(os.environ.get("PDUNET_WATCHDOG_SECS", 0)),
                    help="abort (exit 87) if no eval batch completes for this many "
@@ -108,13 +116,27 @@ def _export_png(path, image: torch.Tensor) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            "--devices above 1 is not ported yet (ROADMAP.md item 16 (data-parallel mesh))")
+    config = resolve_config(args)
+    B = config.train.batch_size
+    n_dev = args.devices or 1
+    if B % n_dev:
+        raise SystemExit(f"--devices {args.devices} must divide batch size {B}")
+    reported_device = args.device
+    if run_ranks("pdunet_tpu_torch.infer", args, argv, n_dev) == 0:
+        return 0
+    mesh = make_mesh(n_dev) if n_dev > 1 else None
+    primary = mesh is None or mesh.rank == 0
+    try:
+        return _run(args, config, mesh, primary, reported_device)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, config, mesh, primary, reported_device):
     if args.watchdog_secs > 0:
         # armed before any device work: build_task runs the power iteration
         watchdog.start(args.watchdog_secs, label="infer")
-    config = resolve_config(args)
     device = torch.device(args.device)
     task = build_task(config, device=device)
     B = config.train.batch_size
@@ -130,9 +152,12 @@ def main(argv=None):
         if restored is None:
             raise SystemExit(f"no {args.ckpt} checkpoint found in {ckpt_dir}")
         ckpt_step = restored.step
-        print(f"[infer] restored step {ckpt_step} ({args.ckpt}) from {ckpt_dir}")
-    else:
+        if primary:
+            print(f"[infer] restored step {ckpt_step} ({args.ckpt}) from {ckpt_dir}")
+    elif primary:
         print("[infer] WARNING: no --ckpt-dir; evaluating randomly-initialized params")
+    if mesh is not None:
+        replicate(task.model, mesh)
 
     if args.hu_window:
         center, width = args.hu_window
@@ -159,15 +184,21 @@ def main(argv=None):
 
     def eval_batch(batch, tag):
         nonlocal exported
+        image = batch["image"]
+        if mesh is not None:  # this rank's rows; the results in the batch's order
+            batch = shard_batch(batch, mesh)
         recon = task.recon_fn(task.model, batch)
         ps, ss = metrics(recon, batch["image"])
+        if mesh is not None:
+            ps, ss = gather_batch(ps, mesh), gather_batch(ss, mesh)
+            recon = gather_batch(recon, mesh) if export_dir else recon
         all_psnr.extend(ps.cpu().tolist())
         all_ssim.extend(ss.cpu().tolist())
         watchdog.beat()  # the fetch above waited for the device: one whole batch done
-        if export_dir:
+        if export_dir and primary:
             for i in range(min(args.export_count - exported, recon.shape[0])):
                 _export_png(export_dir / f"{tag}_{exported:03d}_recon.png", recon[i])
-                _export_png(export_dir / f"{tag}_{exported:03d}_gt.png", batch["image"][i])
+                _export_png(export_dir / f"{tag}_{exported:03d}_gt.png", image[i])
                 exported += 1
 
     with torch.inference_mode():
@@ -206,9 +237,11 @@ def main(argv=None):
         "psnr_std": float(np.std(all_psnr)),
         "ssim_mean": float(np.mean(all_ssim)),
         "ssim_std": float(np.std(all_ssim)),
-        "device": str(device),
+        "device": reported_device,
         "ckpt_step": ckpt_step,
     }
+    if not primary:
+        return 0
     print(f"[infer] {config.name}: "
           f"PSNR {table['psnr_mean']:.2f} ± {table['psnr_std']:.2f} dB  "
           f"SSIM {table['ssim_mean']:.4f} ± {table['ssim_std']:.4f}  "

@@ -37,6 +37,7 @@ from pdunet_tpu_torch.ops.nufft.nufft import (
     nufft_adjoint,
     nufft_forward,
 )
+from pdunet_tpu_torch.ops.radon.parallel import plan_projector
 
 __all__ = ["NufftOps", "make_radial_ops", "radial_dcf", "radial_dcf_pipe_menon"]
 
@@ -89,7 +90,7 @@ class NufftOps(NamedTuple):
 
 def make_radial_ops(geom: RadialGeometry, impl: str = "fourier_slice",
                     dtype=torch.float32, dcf: str = "pipe_menon",
-                    device="cuda") -> NufftOps:
+                    device="cuda", mesh=None) -> NufftOps:
     """Differentiable radial NUFFT bundle on ``device``.
 
     ``impl``: "fourier_slice" (default; ``dtype``, float32 or bfloat16, is
@@ -97,7 +98,9 @@ def make_radial_ops(geom: RadialGeometry, impl: str = "fourier_slice",
     axis on a grid oversampled twice; complex64 whatever ``dtype`` says).
     An odd ``samples_per_spoke`` has no fourier-slice grid: the default
     then warns and runs gridding. ``dcf``: density compensation for
-    ``fbp``, "pipe_menon" (default) or "voronoi_ramp".
+    ``fbp``, "pipe_menon" (default) or "voronoi_ramp". ``mesh``: the
+    fourier-slice path's spokes are angle-sharded over the mesh's angle
+    axis (``plan_projector``); gridding with a mesh raises.
     """
     if impl == "fourier_slice" and geom.samples_per_spoke % 2:
         warnings.warn(
@@ -108,9 +111,14 @@ def make_radial_ops(geom: RadialGeometry, impl: str = "fourier_slice",
     if impl == "fourier_slice":
         plan = build_fs_plan(geom, dtype=dtype, device=device)
         dcf_w = torch.as_tensor(resolve_dcf(geom, dcf), device=device)
-        fwd = functools.partial(fs_nufft_forward, plan)
-        adj = functools.partial(fs_nufft_adjoint, plan)
+        project, backproject = plan_projector(plan.par_plan, mesh)
+        fwd = functools.partial(fs_nufft_forward, plan, project=project)
+        adj = functools.partial(fs_nufft_adjoint, plan, backproject=backproject)
     elif impl == "gridding":
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh sharding applies to the fourier_slice fast path only; the "
+                "gridding oracle is single-device by design")
         plan = build_nufft_plan(geom, dcf=dcf, device=device)
         dcf_w = plan.dcf
         fwd = functools.partial(nufft_forward, plan)

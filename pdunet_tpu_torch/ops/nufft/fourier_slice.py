@@ -22,6 +22,7 @@ batch 2B. Plan math is float64 numpy, identical to the JAX package's.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -182,14 +183,17 @@ def _complex_dtype(x: torch.Tensor):
             else torch.complex64)
 
 
-def fs_nufft_forward(plan: FsPlan, image: torch.Tensor) -> torch.Tensor:
-    """(..., N, N) complex → (..., n_spokes, n_samples) complex."""
+def fs_nufft_forward(plan: FsPlan, image: torch.Tensor, project=None) -> torch.Tensor:
+    """(..., N, N) complex → (..., n_spokes, n_samples) complex. ``project``:
+    the backing projection (by default :func:`parallel_project` on
+    ``plan.par_plan``); the per-spoke selection and assembly run whole."""
     batch_shape = image.shape[:-2]
     z = image.to(_complex_dtype(image)).reshape((-1,) + tuple(image.shape[-2:]))
     B = z.shape[0]
     M = plan.meta["n_samples"]
     u = torch.cat([z.real, z.imag], dim=0)              # (2B, N, N)
-    q = parallel_project(plan.par_plan, u)              # (2B, A, 2M)
+    project = project or functools.partial(parallel_project, plan.par_plan)
+    q = project(u)                                       # (2B, A, 2M)
     e_re, e_im = _nyquist_fwd(plan, u)
     # column m = 0 is r = −k_max: Re = Re E, base-Im = −Im E (conjugated)
     P = torch.cat([e_re[..., None], q[..., 1:M]], dim=-1)
@@ -199,9 +203,10 @@ def fs_nufft_forward(plan: FsPlan, image: torch.Tensor) -> torch.Tensor:
     return out.reshape(batch_shape + out.shape[1:])
 
 
-def fs_nufft_adjoint(plan: FsPlan, kdata: torch.Tensor) -> torch.Tensor:
+def fs_nufft_adjoint(plan: FsPlan, kdata: torch.Tensor, backproject=None) -> torch.Tensor:
     """Exact conjugate transpose of :func:`fs_nufft_forward`
-    (⟨Ax, y⟩ = ⟨x, A†y⟩ with conjugating inner products)."""
+    (⟨Ax, y⟩ = ⟨x, A†y⟩ with conjugating inner products). ``backproject``:
+    the transpose of ``fs_nufft_forward``'s ``project``."""
     batch_shape = kdata.shape[:-2]
     k = kdata.to(_complex_dtype(kdata)).reshape((-1,) + tuple(kdata.shape[-2:]))
     yr, yi = k.real, k.imag
@@ -212,7 +217,8 @@ def fs_nufft_adjoint(plan: FsPlan, kdata: torch.Tensor) -> torch.Tensor:
         torch.cat([yi, -sg * yr], dim=-1),               # component Im
     ], dim=0)                                            # (2B, A, 2M)
     M = plan.meta["n_samples"]
-    u = parallel_backproject(plan.par_plan, q)
+    backproject = backproject or functools.partial(parallel_backproject, plan.par_plan)
+    u = backproject(q)
     # transpose of the column-0 side writes (those W columns are zero, so
     # the backprojection saw none of their cotangent)
     u = u + _nyquist_adj(plan, q[..., 0], -q[..., M])

@@ -29,6 +29,7 @@ a float64 input). The plan's weights are rounded through the operand type
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -44,8 +45,10 @@ from pdunet_tpu_torch.ops.radon.filtering import filter_sinogram
 from pdunet_tpu_torch.ops.radon.parallel import (
     RadonOps,
     _Backproject,
+    _Project,
     parallel_backproject,
     parallel_project,
+    plan_projector,
 )
 
 __all__ = ["FanPlan", "build_fan_plan", "fan_project", "fan_backproject",
@@ -243,24 +246,29 @@ def _flat(x: torch.Tensor):
     return flat, lambda y: y.reshape(lead + y.shape[1:]).to(dt)
 
 
-def fan_project(plan: FanPlan, image: torch.Tensor) -> torch.Tensor:
-    """Fan-beam forward projection. image (..., N, N) → (..., n_beta, n_u)."""
+def fan_project(plan: FanPlan, image: torch.Tensor, project=None) -> torch.Tensor:
+    """Fan-beam forward projection. image (..., N, N) → (..., n_beta, n_u).
+    ``project``: the backing parallel projection (by default
+    :func:`parallel_project` on ``plan.par_plan``)."""
     meta = plan.meta
     f, restore = _flat(image)
     wdt = f.dtype
-    p_par = parallel_project(plan.par_plan, f)                      # (B, n_ext, S_par)
+    project = project or functools.partial(parallel_project, plan.par_plan)
+    p_par = project(f)                                              # (B, n_ext, S_par)
     q = torch.matmul(p_par, plan.Ms.to(wdt))                        # detector resample
     return restore(_gather_rows(q, plan.band("fwd", wdt), meta["pad_beta"]))
 
 
-def fan_backproject(plan: FanPlan, sino: torch.Tensor) -> torch.Tensor:
-    """Exact transpose of :func:`fan_project`. sino (..., n_beta, n_u) → (..., N, N)."""
+def fan_backproject(plan: FanPlan, sino: torch.Tensor, backproject=None) -> torch.Tensor:
+    """Exact transpose of :func:`fan_project`. sino (..., n_beta, n_u) → (..., N, N).
+    ``backproject``: the transpose of ``fan_project``'s ``project``."""
     meta = plan.meta
     p, restore = _flat(sino)
     wdt = p.dtype
     q_t = _scatter_rows_T(p, plan.band("fwd", wdt), meta["n_ext"], meta["pad_beta"])
     p_par = torch.matmul(q_t, plan.Ms.to(wdt).T)
-    return restore(parallel_backproject(plan.par_plan, p_par))
+    backproject = backproject or functools.partial(parallel_backproject, plan.par_plan)
+    return restore(backproject(p_par))
 
 
 def fan_rebin_to_parallel(plan: FanPlan, sino: torch.Tensor) -> torch.Tensor:
@@ -280,50 +288,31 @@ def fan_rebin_to_parallel(plan: FanPlan, sino: torch.Tensor) -> torch.Tensor:
     return restore(_gather_rows(q, plan.band("rebin", wdt), row_pad))
 
 
-class _FanProject(torch.autograd.Function):
-    """Fan A with vjp(A) = A† exactly (every factor transposes exactly)."""
-
-    @staticmethod
-    def forward(ctx, f, plan):
-        ctx.plan = plan
-        return fan_project(plan, f)
-
-    @staticmethod
-    def backward(ctx, g):
-        return fan_backproject(ctx.plan, g), None
-
-
-class _FanBackproject(torch.autograd.Function):
-    """Fan A† with vjp(A†) = A."""
-
-    @staticmethod
-    def forward(ctx, p, plan):
-        ctx.plan = plan
-        return fan_backproject(plan, p)
-
-    @staticmethod
-    def backward(ctx, g):
-        return fan_project(ctx.plan, g), None
-
-
-def make_fan_ops(geom: FanGeometry, dtype=torch.float32, device="cuda") -> RadonOps:
+def make_fan_ops(geom: FanGeometry, dtype=torch.float32, device="cuda",
+                 mesh=None) -> RadonOps:
     """Differentiable fan-beam operator bundle for ``geom`` (the parallel
     bundle's interface; ``plan`` is the :class:`FanPlan`). ``dtype`` is the
     backing projector's operand type (float32 or bfloat16); inputs and
-    outputs keep the caller's dtype."""
+    outputs keep the caller's dtype. ``mesh``: the backing projector is
+    angle-sharded over the mesh's angle axis (``plan_projector``); the
+    rebinning stays whole on every rank. vjp(A) = A† and vjp(A†) = A
+    exactly (every factor transposes exactly)."""
     plan = build_fan_plan(geom, dtype=dtype, device=device)
     ds = plan.par_plan.geom.det_spacing
+    backing = plan_projector(plan.par_plan, mesh)
+    pair = (lambda f: fan_project(plan, f, backing[0]),
+            lambda p: fan_backproject(plan, p, backing[1]))
 
     def A(f):
-        return _FanProject.apply(f, plan)
+        return _Project.apply(f, *pair)
 
     def At(p):
-        return _FanBackproject.apply(p, plan)
+        return _Backproject.apply(p, *pair)
 
     def fbp(p, filter_name: str = "ramp"):
         p_ext = fan_rebin_to_parallel(plan, p)
         filt = filter_sinogram(p_ext, ds, filter_name) * plan.wrow[:, None].to(p_ext.dtype)
-        return _Backproject.apply(filt, plan.par_plan)
+        return _Backproject.apply(filt, *backing)
 
     return RadonOps(
         A=A,

@@ -22,6 +22,7 @@ Shapes: images ``(..., N, N)`` (row j ↦ +y, column i ↦ +x), sinograms
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -40,7 +41,8 @@ from pdunet_tpu_torch.ops.radon.cuda_kernels import (
 )
 from pdunet_tpu_torch.ops.radon.filtering import filter_sinogram
 
-__all__ = ["parallel_project", "parallel_backproject", "make_parallel_ops", "RadonOps"]
+__all__ = ["parallel_project", "parallel_backproject", "plan_projector", "make_parallel_ops",
+           "RadonOps"]
 
 _CDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -133,29 +135,47 @@ def parallel_backproject(plan: ParallelPlan, sino: torch.Tensor) -> torch.Tensor
 
 
 class _Project(torch.autograd.Function):
-    """A with vjp(A) = A† exactly (the factored stages transpose weight for weight)."""
+    """A = ``project`` with vjp(A) = ``backproject``, its exact transpose
+    (the factored stages transpose weight for weight, whole or sharded)."""
 
     @staticmethod
-    def forward(ctx, f, plan):
-        ctx.plan = plan
-        return parallel_project(plan, f)
+    def forward(ctx, f, project, backproject):
+        ctx.backproject = backproject
+        return project(f)
 
     @staticmethod
     def backward(ctx, g):
-        return parallel_backproject(ctx.plan, g), None
+        return ctx.backproject(g), None, None
 
 
 class _Backproject(torch.autograd.Function):
-    """A† with vjp(A†) = A."""
+    """A† = ``backproject`` with vjp(A†) = ``project``."""
 
     @staticmethod
-    def forward(ctx, p, plan):
-        ctx.plan = plan
-        return parallel_backproject(plan, p)
+    def forward(ctx, p, project, backproject):
+        ctx.project = project
+        return backproject(p)
 
     @staticmethod
     def backward(ctx, g):
-        return parallel_project(ctx.plan, g), None
+        return ctx.project(g), None, None
+
+
+def plan_projector(plan: ParallelPlan, mesh=None) -> tuple:
+    """(A, A†) of ``plan`` as functions of one tensor: :func:`parallel_project`
+    and :func:`parallel_backproject`, or with ``mesh`` (a
+    ``parallel.sharding.Mesh``) their versions angle-sharded over its angle
+    axis (``parallel/angle_shard.py``)."""
+    if mesh is None:
+        return (functools.partial(parallel_project, plan),
+                functools.partial(parallel_backproject, plan))
+    from pdunet_tpu_torch.parallel.angle_shard import (
+        angle_sharded_backproject,
+        angle_sharded_project,
+    )
+
+    return (functools.partial(angle_sharded_project, plan, mesh=mesh),
+            functools.partial(angle_sharded_backproject, plan, mesh=mesh))
 
 
 class RadonOps(NamedTuple):
@@ -171,19 +191,22 @@ class RadonOps(NamedTuple):
 
 
 def make_parallel_ops(geom: ParallelGeometry, dtype=torch.float32,
-                      device="cuda") -> RadonOps:
+                      device="cuda", mesh=None) -> RadonOps:
     """Build the differentiable parallel-beam operator bundle for ``geom``.
 
     ``dtype`` is the projector's operand type (float32 or bfloat16); its
-    inputs and outputs keep the caller's dtype.
+    inputs and outputs keep the caller's dtype. ``mesh``: the bundle is
+    angle-sharded over the mesh's angle axis (:func:`plan_projector`);
+    every rank of that axis calls it on the same batch.
     """
     plan = build_parallel_plan(geom, dtype=dtype, device=device)
+    pair = plan_projector(plan, mesh)
 
     def A(f):
-        return _Project.apply(f, plan)
+        return _Project.apply(f, *pair)
 
     def At(p):
-        return _Backproject.apply(p, plan)
+        return _Backproject.apply(p, *pair)
 
     n_angles = len(geom.angles)
     # FBP scale: f ≈ (π/A)·Σ_a BP_a(ramp ⊛ p), and At carries the δp²/δs

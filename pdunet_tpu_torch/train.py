@@ -8,6 +8,8 @@ Usage:
   python -m pdunet_tpu_torch.train --preset pdunet_parallel --data store --split train
   python -m pdunet_tpu_torch.train --preset pdunet_parallel --device cpu --steps 20 \\
       --set geometry.image_size=32 --set model.base_features=8
+  python -m pdunet_tpu_torch.train --preset pdunet_parallel --devices 2 --angle-devices 2
+  python -m pdunet_tpu_torch.train --preset pdunet_parallel --steps 200 --tb-dir runs/tb
 
 Ported presets: all seven (``pdunet_parallel``, ``pdunet_radial``,
 ``fbp_unet_parallel``, ``sino_unet_parallel``, ``lpd_parallel``,
@@ -16,9 +18,17 @@ can be overridden with ``--set section.field=value``. Training runs on the
 card (``--device cuda``) unless ``--device cpu`` is asked for. ``--data``
 trains on the ground truth of a slice store (``data/datasets.py``: an npy
 directory, or an ``.h5`` file where h5py is installed) and validates on its
-``val`` split. The device meshes (``--devices``, ``--angle-devices``) and
-TensorBoard (``--tb-dir``) are not ported yet and raise; ``--checkify`` and
-``--dump-hlo`` are XLA tools with no counterpart here.
+``val`` split. ``--tb-dir`` writes TensorBoard scalars (the tensorboard
+package must be installed).
+
+``--devices D --angle-devices G`` trains on a (data, angle) mesh of D·G
+ranks: this command starts them as processes (``parallel/launch.py``; or
+run it under ``torchrun --nproc-per-node D·G``), each on
+``cuda:(LOCAL_RANK % card count)`` or the CPU, joined by NCCL on cards and
+gloo on the CPU (``--dist-backend gloo`` for ranks that share a card). The
+batch is sharded over the data axis and, with G > 1, the operators over
+the angle axis. ``--checkify`` and ``--dump-hlo`` are XLA tools with no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -32,14 +42,7 @@ import sys
 import torch
 
 from pdunet_tpu_torch.configs import ExperimentConfig, get_preset
-
-#: flags of the reference kept for parity that the port does not run yet →
-#: the ROADMAP.md item that ports them
-_UNPORTED = {
-    "devices": "item 16 (data-parallel mesh)",
-    "angle_devices": "item 17 (angle-sharded operators)",
-    "tb_dir": "item 19 (TensorBoard logging)",
-}
+from pdunet_tpu_torch.parallel.launch import add_dist_args, run_ranks
 
 
 def parse_args(argv=None):
@@ -73,11 +76,13 @@ def parse_args(argv=None):
                    help="slice store to train on (npy directory, or .h5 with h5py); "
                         "else synthetic phantoms")
     p.add_argument("--split", default="train", help="dataset split for --data")
-    # the reference's flags the port does not run: each raises
-    p.add_argument("--devices", type=int, default=None, help="not ported (ROADMAP item 16)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel: shard each batch over this many ranks")
     p.add_argument("--angle-devices", type=int, default=None,
-                   help="not ported (ROADMAP item 17)")
-    p.add_argument("--tb-dir", default=None, help="not ported (ROADMAP item 19)")
+                   help="angle-shard the operators over this many ranks per data shard")
+    add_dist_args(p)
+    p.add_argument("--tb-dir", default=None, help="write TensorBoard scalars here")
+    # XLA tools of the reference: each raises
     p.add_argument("--checkify", action="store_true",
                    help="an XLA tool; no counterpart here (see --debug-nans)")
     p.add_argument("--dump-hlo", default=None, metavar="DIR",
@@ -86,10 +91,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args):
-    for name, item in _UNPORTED.items():
-        if getattr(args, name) is not None:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
     for flag, on in (("--checkify", args.checkify), ("--dump-hlo", args.dump_hlo)):
         if on:
             raise NotImplementedError(
@@ -119,6 +120,10 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
     config = resolve_config(args)
+    world = (args.devices or 1) * (args.angle_devices or 1)
+    if config.train.batch_size % (args.devices or 1):
+        raise SystemExit(f"--devices {args.devices} must divide batch size "
+                         f"{config.train.batch_size}")
     if args.resume == "none" and config.train.ckpt_dir:
         # a fresh run: refuse to clobber an existing run directory
         ckpt = pathlib.Path(config.train.ckpt_dir)
@@ -128,6 +133,8 @@ def main(argv=None):
     if args.dump_config:
         print(config.to_json())
         return 0
+    if run_ranks("pdunet_tpu_torch.train", args, argv, world) == 0:
+        return 0
     if args.watchdog_secs > 0:
         from pdunet_tpu_torch.utils import watchdog
 
@@ -135,10 +142,15 @@ def main(argv=None):
 
     from pdunet_tpu_torch.training.loop import train
 
-    with torch.autograd.set_detect_anomaly(args.debug_nans):
-        result = train(config, steps=args.steps, metrics_path=args.metrics, verbose=True,
-                       profile_dir=args.profile_dir, device=args.device, data=args.data,
-                       split=args.split)
+    try:
+        with torch.autograd.set_detect_anomaly(args.debug_nans):
+            result = train(config, steps=args.steps, metrics_path=args.metrics, verbose=True,
+                           profile_dir=args.profile_dir, device=args.device, data=args.data,
+                           split=args.split, n_devices=args.devices,
+                           angle_devices=args.angle_devices, tb_dir=args.tb_dir)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print(f"[done] final eval: {result.final_eval}")
     return 0
 

@@ -9,6 +9,11 @@ the newest ``max_to_keep`` and saves as orbax's default policy does: a step
 past the latest saved one, when it is a multiple of
 ``save_interval_steps`` or the directory holds none yet, or on ``force``.
 
+In a run over a mesh every rank builds the manager and restores from it,
+and only rank 0's (``primary=True``) writes; the state-dict keys are the
+model's own, so a checkpoint moves between a mesh run and a single-device
+one.
+
 The reference needs ``_flip_remat_names`` because flax renames its scan
 modules with ``model.remat``; the port's parameter names do not depend on
 remat, so a checkpoint restores under either setting.
@@ -31,11 +36,14 @@ _NAME = re.compile(r"^(\d+)\.pt$")
 class CheckpointManager:
     """Keep-N checkpoints of a train state (``training.loop.TrainState``)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3, save_interval_steps: int = 1):
+    def __init__(self, directory: str, max_to_keep: int = 3, save_interval_steps: int = 1,
+                 primary: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        #: whether :meth:`save` writes (rank 0 of a mesh run)
+        self.primary = primary
 
     def all_steps(self) -> list:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory))
@@ -55,8 +63,9 @@ class CheckpointManager:
         return latest is None or step % self.save_interval_steps == 0
 
     def save(self, step: int, state, config=None, force: bool = False) -> bool:
-        """Write ``state`` as step ``step``; returns whether it was written."""
-        if not force and not self.should_save(step):
+        """Write ``state`` as step ``step``; returns whether it was written
+        (never off the primary rank)."""
+        if not self.primary or (not force and not self.should_save(step)):
             return False
         payload = {"model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict(),

@@ -1,5 +1,4 @@
-"""The training loop of the PyTorch port (port of ``pdunet_tpu/training/loop.py``
-without its mesh and TensorBoard branches).
+"""The training loop of the PyTorch port (port of ``pdunet_tpu/training/loop.py``).
 
 One step: the batch is drawn on the device (``task.make_batch``: phantoms,
 the f32 measurement and the network's input) or, with ``train(data=...)``,
@@ -36,6 +35,22 @@ of the split (``iterate_batches(seed=train.seed)``); the step copies each
 to the device, synthesises its measurement and draws the preset's noise
 from the step's generator. Validation runs noiselessly on whole batches of
 the ``val`` split (the first train batch when ``val`` holds less than one).
+
+Meshes (``train(n_devices=D, angle_devices=G)``, in each of the D·G ranks
+of a process group; ``python -m pdunet_tpu_torch.train --devices D
+--angle-devices G`` starts them): a (data, angle) mesh of
+``parallel/sharding.py``. Every rank draws (or reads) the global batch from
+the same generator, synthesises it whole, and keeps its data shard's rows,
+so the step equals the single-device one; the gradients are averaged over
+the data axis before the optimizer, and the logged metrics too. With G > 1
+the task's operators are angle-sharded (``parallel/angle_shard.py``).
+Validation runs on every rank (the sharded operators need all of them), on
+its rows of each batch. Only rank 0 writes the metrics file, checkpoints,
+``best.json`` and TensorBoard; every rank restores a checkpoint.
+
+TensorBoard (``tb_dir``): every logged scalar but ``step`` under its own
+tag, and each validation scalar as ``val_<name>``, the tags of the JAX
+package's clu writer.
 """
 
 from __future__ import annotations
@@ -50,11 +65,19 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pdunet_tpu_torch.configs import ExperimentConfig
 from pdunet_tpu_torch.data.datasets import SliceDataset, iterate_batches
 from pdunet_tpu_torch.data.native import HostPrefetcher
 from pdunet_tpu_torch.ops.metrics import psnr, ssim
+from pdunet_tpu_torch.parallel.sharding import (
+    all_reduce_grads,
+    make_mesh,
+    mean_over,
+    replicate,
+    shard_batch,
+)
 from pdunet_tpu_torch.training.checkpoint import CheckpointManager
 from pdunet_tpu_torch.training.tasks import Task, build_task
 from pdunet_tpu_torch.utils import watchdog
@@ -170,7 +193,7 @@ def _mark(marks, name: str, device):
         marks.append((name, time.perf_counter()))
 
 
-def make_train_step(task: Task, from_images: bool = False):
+def make_train_step(task: Task, from_images: bool = False, mesh=None):
     """The train step ``step(state, x, marks=None, generator=None) -> metrics``.
 
     Synthetic mode: ``x`` is the ``torch.Generator`` the batch is drawn
@@ -184,7 +207,12 @@ def make_train_step(task: Task, from_images: bool = False):
     ``img_loss``) as 0-d device tensors (the norm is taken before
     clipping). ``marks``: a list that receives a CUDA event (host time on
     the CPU) after each phase: synthesis, forward (with the loss),
-    backward, optimizer."""
+    backward (with the gradient all-reduce), optimizer.
+
+    ``mesh``: the step of one rank of a data-parallel mesh (the JAX
+    package's ``make_sharded_train_step``): it keeps its data shard's rows
+    of the synthesised global batch, and averages the gradients (before the
+    clip) and the metrics over the data axis."""
     device = next(task.model.parameters()).device
     f32_convs = not task.config.model.use_bfloat16
     synth = task.batch_from_images if from_images else task.make_batch
@@ -193,6 +221,8 @@ def make_train_step(task: Task, from_images: bool = False):
         _mark(marks, "start", device)
         with torch.no_grad():
             batch = synth(x, generator) if from_images else synth(x)
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
         _mark(marks, "synthesis", device)
         loss, aux = task.loss_fn(state.model, batch)
         _mark(marks, "forward", device)
@@ -201,12 +231,15 @@ def make_train_step(task: Task, from_images: bool = False):
         # which runs outside the forward's per-layer pins
         with exact_f32_conv(f32_convs):
             loss.backward()
+        if mesh is not None:
+            all_reduce_grads(state.model.parameters(), mesh)
         _mark(marks, "backward", device)
         norm = apply_gradients(state)
         _mark(marks, "optimizer", device)
         # aux: the task's loss terms (sino_unet's sino_loss / img_loss)
-        return {"loss": loss.detach(), "grad_norm": norm,
-                **{k: v.detach() for k, v in aux.items()}}
+        metrics = {"loss": loss.detach(), "grad_norm": norm,
+                   **{k: v.detach() for k, v in aux.items()}}
+        return metrics if mesh is None else mean_over(metrics, mesh)
 
     return step
 
@@ -280,10 +313,38 @@ def _file_batches(data: str, split: str, tc, image_size: int):
     return train_ds, val_images
 
 
+def _tb_writer(tb_dir: str):
+    """A TensorBoard ``SummaryWriter`` on ``tb_dir``; the tensorboard
+    package is imported only here."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError(f"--tb-dir (tb_dir=) needs the tensorboard package, which is not "
+                          f"installed ({e}); install it or drop --tb-dir") from e
+    return SummaryWriter(tb_dir)
+
+
+def _train_mesh(tc, n_devices, angle_devices):
+    """The (data, angle) mesh of a run over D·G ranks, or None for one device."""
+    D, G = n_devices or 1, angle_devices or 1
+    if D * G == 1:
+        return None
+    if tc.batch_size % D:
+        raise ValueError(f"batch_size {tc.batch_size} not divisible by {D} devices")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "train(n_devices=, angle_devices=) runs in every rank of a process group: "
+            "start the ranks with `python -m pdunet_tpu_torch.train --devices D "
+            "--angle-devices G` (or torchrun), which joins them with "
+            "parallel.init_distributed")
+    return make_mesh(D * G, shape=(D, G))
+
+
 def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: bool = False,
           metrics_path: Optional[str] = None, verbose: bool = True,
           profile_dir: Optional[str] = None, device="cuda", data: Optional[str] = None,
-          split: str = "train") -> TrainResult:
+          split: str = "train", n_devices: Optional[int] = None,
+          angle_devices: Optional[int] = None, tb_dir: Optional[str] = None) -> TrainResult:
     """Train one experiment preset end to end on ``device``.
 
     ``steps`` overrides ``train.steps`` (and the schedule's length).
@@ -295,25 +356,38 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
     ``max_checkpoints``), resumes from the latest checkpoint there, and
     keeps the best validation PSNR's weights in ``best/`` with
     ``best.json``. ``profile_dir``: a ``torch.profiler`` trace of steps 10-15 (counted
-    from the start or resume step) as ``trace.json`` there."""
+    from the start or resume step) as ``trace.json`` there.
+
+    ``n_devices`` / ``angle_devices``: above 1, this call is one rank of a
+    (data = n_devices, angle = angle_devices) mesh over the initialised
+    process group (the module docstring); the batch must divide by
+    ``n_devices``. ``tb_dir``: TensorBoard scalars there."""
     tc = config.train
     n_steps = tc.steps if steps is None else steps
     device = torch.device(device)
     if data is not None and fixed_data:
         raise ValueError("fixed_data and data= are mutually exclusive")
-    task = build_task(config, device=device)
+    mesh = _train_mesh(tc, n_devices, angle_devices)
+    primary = mesh is None or mesh.rank == 0
+    verbose = verbose and primary
+    task = build_task(config, device=device,
+                      mesh=mesh if (angle_devices or 1) > 1 else None)
     state = build_state(task, n_steps=n_steps,
                         init_seed=derive_seed(tc.seed, INIT_STREAM))
+    if mesh is not None:
+        replicate(state.model, mesh)
 
     ckpt_mgr = best_mgr = None
     start_step = 0
     best_psnr, best_step = float("-inf"), -1
     if tc.ckpt_dir:
+        # every rank restores; only rank 0 writes
         ckpt_mgr = CheckpointManager(tc.ckpt_dir, max_to_keep=tc.max_checkpoints,
-                                     save_interval_steps=tc.ckpt_every)
+                                     save_interval_steps=tc.ckpt_every, primary=primary)
         # the best validation weights survive keep-N rotation in their own
         # single-slot manager (infer --ckpt best loads it)
-        best_mgr = CheckpointManager(os.path.join(tc.ckpt_dir, "best"), max_to_keep=1)
+        best_mgr = CheckpointManager(os.path.join(tc.ckpt_dir, "best"), max_to_keep=1,
+                                     primary=primary)
         if ckpt_mgr.restore(state) is not None:
             start_step = state.step
             if verbose:
@@ -324,14 +398,21 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
         if best_json.exists() and best_mgr.latest_step() is not None:
             prev = json.loads(best_json.read_text())
             best_psnr, best_step = prev["psnr"], prev["step"]
+        if mesh is not None:
+            dist.barrier()  # every rank has read the run before rank 0 writes to it
 
-    step_fn = make_train_step(task, from_images=data is not None)
+    if mesh is None:
+        step_fn = make_train_step(task, from_images=data is not None)
+    else:  # the JAX package's make_sharded_train_step
+        step_fn = make_train_step(task, from_images=data is not None, mesh=mesh)
     eval_fn = make_eval_step(task)
 
     def run_eval(batches):
         sums = {}
         for b in batches:
-            for k, v in eval_fn(state.model, b).items():
+            ev = (eval_fn(state.model, b) if mesh is None
+                  else mean_over(eval_fn(state.model, shard_batch(b, mesh)), mesh))
+            for k, v in ev.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
         return {k: v / len(batches) for k, v in sums.items()}
 
@@ -339,7 +420,8 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
         return _generator(device, derive_seed(tc.seed, DATA_STREAM, 0 if fixed_data else i))
 
     history = []
-    mfile = open(metrics_path, "a") if metrics_path else None
+    mfile = open(metrics_path, "a") if metrics_path and primary else None
+    tb = _tb_writer(tb_dir) if tb_dir and primary else None
     prof = train_ds = prefetcher = None
     try:
         # a fixed validation set of ≥ val_slices held-out slices, as whole
@@ -359,7 +441,7 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
                                for j in range(n_val)]
         t0 = time.perf_counter()
         for i in range(start_step, n_steps):
-            if profile_dir and i == start_step + 10:
+            if profile_dir and primary and i == start_step + 10:
                 prof = torch.profiler.profile(activities=_profile_activities(device))
                 prof.start()
             if prof is not None and i == start_step + 15:
@@ -385,6 +467,10 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
                 if mfile:
                     mfile.write(json.dumps(m) + "\n")
                     mfile.flush()
+                if tb:
+                    for k, v in m.items():
+                        if k != "step":
+                            tb.add_scalar(k, v, i + 1)
             if (i + 1) % tc.eval_every == 0 and not fixed_data:
                 ev = run_eval(val_batches)
                 if verbose:
@@ -392,10 +478,13 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
                 if mfile:
                     mfile.write(json.dumps({"step": i + 1, **ev}) + "\n")
                     mfile.flush()
+                if tb:
+                    for k, v in ev.items():
+                        tb.add_scalar(f"val_{k}", v, i + 1)
                 if ev["psnr"] > best_psnr:
                     best_psnr, best_step = ev["psnr"], i + 1
-                    if best_mgr is not None:
-                        best_mgr.save(best_step, state, config=config, force=True)
+                    if best_mgr is not None and best_mgr.save(best_step, state, config=config,
+                                                              force=True):
                         pathlib.Path(tc.ckpt_dir, "best.json").write_text(
                             json.dumps({"step": best_step, "psnr": best_psnr}))
             if ckpt_mgr is not None:
@@ -405,6 +494,8 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
             prof.stop()
         if mfile:
             mfile.close()
+        if tb:
+            tb.close()
         if prefetcher is not None:
             prefetcher.close()
         if train_ds is not None:
@@ -417,4 +508,6 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
         final_eval = run_eval(val_batches)
     if ckpt_mgr is not None and ckpt_mgr.latest_step() != n_steps:
         ckpt_mgr.save(n_steps, state, config=config, force=True)
+    if mesh is not None:
+        dist.barrier()  # no rank returns before rank 0's last checkpoint is written
     return TrainResult(state, history, final_eval, task)

@@ -189,7 +189,7 @@ def _ct_noise(generator, sino: torch.Tensor, photons: float) -> torch.Tensor:
     return lowdose_poisson_noise(generator, sino * MU_WATER, photons) / MU_WATER
 
 
-def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
+def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None, mesh=None) -> Task:
     """Build the task of ``config`` on ``device``: ``pdunet`` or ``lpd``
     (parallel- or fan-beam CT, radial MRI), ``fbp_unet`` (parallel- or
     fan-beam CT) or ``sino_unet`` (parallel-beam CT, radial MRI).
@@ -197,7 +197,13 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
     The model's weights come from a CPU generator seeded with 0; use
     ``init_params`` or ``models.convert.flax_to_torch`` to replace them.
     ``opnorm_x0`` is the power iteration's start vector (see
-    :func:`estimate_opnorm`; the UNet tasks run none)."""
+    :func:`estimate_opnorm`; the UNet tasks run none).
+
+    ``mesh``: every operator of the task is angle-sharded over the mesh's
+    angle axis (``parallel/angle_shard.py``; parallel and fan beam, and
+    radial MRI's fourier-slice path); every rank of the axis then calls them
+    on the same batch. σ comes from an unsharded twin of the sparse
+    operator, the same on every rank (the seeded start vector)."""
     gc, mc, tc = config.geometry, config.model, config.train
     if mc.kind not in ("pdunet", "lpd", "fbp_unet", "sino_unet"):
         raise NotImplementedError(f"model kind {mc.kind!r} is not ported yet")
@@ -212,7 +218,12 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
     device = torch.device(device)
     dense_geom, sparse_geom = build_geometries(gc)
     is_complex = gc.kind == "radial"
-    make_ops = {"radial": make_radial_ops, "fan": make_fan_ops}.get(gc.kind, make_parallel_ops)
+    make_local_ops = {"radial": make_radial_ops, "fan": make_fan_ops}.get(gc.kind,
+                                                                          make_parallel_ops)
+
+    def make_ops(geom, **kw):
+        return make_local_ops(geom, mesh=mesh, **kw)
+
     dtype = torch.bfloat16 if mc.use_bfloat16 else torch.float32
     N = gc.image_size
     B = tc.batch_size
@@ -309,7 +320,10 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None) -> Task:
     ops_sparse = make_ops(sparse_geom, dtype=dtype, device=device)
     ops_synth = (ops_sparse if dtype == torch.float32
                  else make_ops(sparse_geom, dtype=torch.float32, device=device))
-    sigma = estimate_opnorm(ops_sparse.A, ops_sparse.At, (N, N), x0=opnorm_x0,
+    # the power iteration runs on one image: on the unsharded twin when sharded
+    ops_sigma = (ops_sparse if mesh is None
+                 else make_local_ops(sparse_geom, dtype=dtype, device=device))
+    sigma = estimate_opnorm(ops_sigma.A, ops_sigma.At, (N, N), x0=opnorm_x0,
                             device=device, is_complex=is_complex)
     A_n = lambda f: ops_sparse.A(f) / sigma
     At_n = lambda p: ops_sparse.At(p) / sigma

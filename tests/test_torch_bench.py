@@ -105,10 +105,9 @@ def test_projector_flops_match_jax_formula(kw):
 
 def test_unported_presets_and_flags_raise():
     """Every preset has a matrix batch now; an odd spoke length falls back
-    to the gridding NUFFT with a warning (item 14 is ported), and what
-    stays unported still raises: training's TensorBoard (item 19) and
-    angle-sharded operators (item 17)."""
-    from pdunet_tpu_torch import train
+    to the gridding NUFFT with a warning (item 14 is ported). Training's
+    TensorBoard and angle-sharded operators, which raised here until they
+    were ported, are tested in test_torch_tb.py and test_torch_sharding.py."""
     from pdunet_tpu_torch.configs.presets import PRESETS
     from pdunet_tpu_torch.geometry import RadialGeometry
     from pdunet_tpu_torch.ops.nufft import make_radial_ops
@@ -118,10 +117,6 @@ def test_unported_presets_and_flags_raise():
         ops = make_radial_ops(RadialGeometry(image_size=32, n_spokes=8, samples_per_spoke=63),
                               device="cpu")
     assert ops.sino_shape == (8, 63)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        train.main(["--preset", "pdunet_fan", "--device", "cpu", "--tb-dir", "tb"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train.main(["--preset", "pdunet_fan", "--device", "cpu", "--angle-devices", "2"])
 
 
 def test_unet_scan_on_cpu(tmp_path, monkeypatch, capsys):

@@ -192,9 +192,21 @@ def test_export_png_matches_jax_dump(store, ckpt, tmp_path):
             assert np.abs(ours.astype(int) - ref).max() <= 1
 
 
-def test_devices_above_one_raise(ckpt, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        infer.main([*FLAGS, "--device", "cpu", "--devices", "2"])
+def test_devices_above_one_raise(ckpt, store, tmp_path):
+    """``--devices 2`` (which raised until the mesh was ported) runs two
+    gloo ranks: its table equals ``--devices 1`` (PSNR rtol 1e-5, SSIM
+    1e-4, as tests/test_sharding.py asks of JAX's) and JAX's ``--devices
+    2`` on the same weights and slices; a count that does not divide the
+    batch is refused."""
+    flags = ["--data", store["h5"], "--split", "train"]
+    one = _port(tmp_path, ckpt, *flags, "--devices", "1")
+    two = _port(tmp_path, ckpt, *flags, "--devices", "2", "--dist-timeout", "120")
+    assert one["n_slices"] == two["n_slices"] == 4
+    np.testing.assert_allclose(two["psnr_mean"], one["psnr_mean"], rtol=1e-5)
+    np.testing.assert_allclose(two["ssim_mean"], one["ssim_mean"], rtol=1e-4)
+    _close(two, _jax(tmp_path, *flags, "--devices", "2"))
+    with pytest.raises(SystemExit, match="must divide"):
+        infer.main([*FLAGS, "--device", "cpu", "--devices", "3"])
     assert _port(tmp_path, ckpt, "--devices", "1", "--n-slices", "2")["n_slices"] == 2
 
 

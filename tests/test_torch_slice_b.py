@@ -198,7 +198,8 @@ def test_sino_prediction_keeps_the_measured_rows():
 def test_slice_b_refusals():
     """sino_unet stays undefined on fan beam; an odd spoke length builds
     sino_unet_radial on the gridding NUFFT with a warning (item 14 is
-    ported); what stays unported raises: training's mesh flag (item 16)."""
+    ported); training's mesh flag (item 16, ported) refuses a device count
+    that does not divide the batch before it starts any rank."""
     from pdunet_tpu_torch import train
     from pdunet_tpu_torch.geometry import RadialGeometry
     from pdunet_tpu_torch.ops.nufft import make_radial_ops
@@ -212,8 +213,8 @@ def test_slice_b_refusals():
     assert task.make_batch(torch.Generator().manual_seed(0))["k_in_w"].shape[-1] == 47
     assert type(make_radial_ops(RadialGeometry(image_size=N, n_spokes=10), impl="gridding",
                                 device="cpu").plan).__name__ == "NufftPlan"
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(["--preset", "lpd_parallel", "--device", "cpu", "--devices", "4"])
+    with pytest.raises(SystemExit, match="must divide batch size 4"):
+        train.main(["--preset", "lpd_parallel", "--device", "cpu", "--devices", "3"])
 
 
 # -- training against JAX --------------------------------------------------------
