@@ -6,7 +6,8 @@
 Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   1. build every CUDA source of the port with nvcc (sm_90a), all at once, and
      count the HGMMA (wgmma) instructions of each tensor-core kernel in the
-     built library (cuobjdump -sass): the stage-1 / 1ᵀ kernels must have some;
+     built library (cuobjdump -sass): the stage-1 / 1ᵀ kernels, row 6's
+     packed probe (radon_proto_tc.cu) included, must have some;
   2. at the serving path's shapes (pdunet_parallel: B=4, 256², 90 of 360
      angles, P=23 pairs per group, K=180), hold each kernel against its plain
      PyTorch version on the card, float32 and bf16 operands, both groups:
@@ -75,18 +76,29 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      calls on either route in turns, the host's time to enqueue one recon,
      and the profile on both routes;
   9. the two kernel probes as a user runs them (``python -m
-     pdunet_tpu_torch.scripts.trig_proto`` / ``pack_proto``: flagship plan,
-     256², 90 of 360 angles, B=32, their own checks and timings); launch
-     counters must show each probe kernel ran;
- 10. at those shapes, each probe kernel (doubling and no-trig pair forward,
-     packed per-angle forward and adjoint) against its plain version, f32
-     and bf16, both groups (≤ 1e-5 / ≤ 5e-3); the packed kernels with exact
-     trig in bf16 too; packed = the CUDA-core per-angle kernels in f32
-     (≤ 1e-5);
-     the packed pair's adjoint dot test in f32; doubling within 2e-2 of the
-     exact-trig pair kernel;
+     pdunet_tpu_torch.scripts.trig_proto`` on the flagship plan, 256², 90
+     of 360 angles, B=32; ``pack_proto`` on its three plans: flagship,
+     pdunet_radial's 128-spoke plan at B' = 8, sino_unet_radial's dense
+     512-spoke plan at B' = 8 and 128 with the shipped f32 adjoint's
+     table probes; their own checks and timings); launch counters must
+     show each probe kernel and row 6's CUDA-core baseline ran;
+ 10. at the flagship shapes, each probe kernel (doubling and no-trig pair
+     forward, packed per-angle forward and adjoint on the tensor cores, and
+     row 6's CUDA-core kernels) against its plain version, f32 and bf16,
+     both groups (≤ 1e-5 / ≤ 5e-3); the packed kernels with exact trig in
+     bf16 too; the CUDA-core packed = the CUDA-core per-angle kernels in f32
+     (≤ 1e-5) and its adjoint dot test in f32; doubling within 2e-2 of the
+     exact-trig pair kernel; then row 6's tensor-core kernels on the
+     flagship groups (B = 32), both radial plans (B' = 8), a 96² plan (Np =
+     128 > N) and pdunet_fan's backing plan (odd S = 251) at B = 4, and
+     384² and 512² plans (the forward's depth windows, 3 x 128 and 2 x
+     256) at B = 2, both groups, bf16 with doubling and with exact trig and
+     f32: against the plain versions (≤ 5e-3 / ≤ 1e-5), against the
+     shipped tensor-core route from the plan's tables (bf16 exact trig ≤
+     5e-3, f32 ≤ 1e-5) and the f32 dot test (y = A x + noise, ≤ 1e-5);
  11. CUDA-event timings of the probe kernels beside their bound, plain
-     version and stage-1 matmul yardstick;
+     version and stage-1 matmul yardstick; row 6 also beside the shipped
+     tensor-core route and its CUDA-core kernels;
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only;
  13. training: a few steps of ``training.loop.train`` for ``pdunet_parallel``
@@ -192,7 +204,9 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
-builders of both routes of the pair and of the per-angle kernels; rows 1-4
+builders of both routes of the pair and of the per-angle kernels; row 6
+carries the shipped tensor-core route's and its CUDA-core kernels' times
+beside its own and the probe script's records of its three plans; rows 1-4
 carry their launches per train step, rows 1-2 also their launches on each
 slice-B path and on pdunet_fan's, their dense-plan split-route times and
 their times on the fan backing plans, rows 3-4 their launches on
@@ -1221,29 +1235,48 @@ def radial_phases(dev, card, gen):
     return entries, stats
 
 
-#: the probe kernels (csrc/radon_proto.cu) and the Pallas kernels they replace
+#: the probe kernels (row 5: csrc/radon_proto.cu; row 6: csrc/radon_proto_tc.cu)
+#: and the Pallas kernels they replace
 PROBE_REPLACES = {
     "project_pair_group_doubling": "scripts/trig_proto.py:169",
     "project_pair_group_notrig": "scripts/trig_proto.py:169",
     "project_group_packed": "scripts/pack_proto.py:102",
     "backproject_group_packed": "scripts/pack_proto.py:127",
 }
+#: row 6's CUDA-core kernels (csrc/radon_proto.cu), the A/B baseline of the
+#: tensor-core ones: the probe script runs them, no path may
+PROBE_CC = ("_project_group_packed_cc", "_backproject_group_packed_cc")
+#: the kernels of csrc/radon_proto_tc.cu; the first six are row 6's
+#: stage-1 / 1ᵀ products (bf16 with exact and doubling trig; split, exact)
+PROTO_TC_KERNELS = tuple(f"proto_tc_{op}{d}" for op in ("fwd", "adj") for d in ("", "_dbl")) + (
+    "proto_split_fwd", "proto_split_adj",
+    "proto_tc_prep", "proto_tc_round", "proto_tc_w4_prep", "proto_tc_w_prep",
+    "proto_tc_fwd_stage3", "proto_tc_adj_stage3t", "proto_split_fwd_stage3",
+    "proto_split_adj_stage3t", "proto_tc_reduce")
+#: the probe script's plans (phase 9), which phase 10 checks row 6 on too
+PROBE_PLANS = ("flagship", "radial", "radial-dense")
 
 
 def probe_phases(dev, card, gen):
     """Phases 9-11: the two kernel probes as a user runs them, their kernels
-    against their plain versions, and their timings. Returns the kernels'
-    JSON entries."""
+    against their plain versions (row 6 also against the shipped
+    tensor-core route), and their timings. Returns the kernels' JSON
+    entries."""
     from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
     from pdunet_tpu_torch.ops.radon import proto_kernels as pk
     from pdunet_tpu_torch.scripts import pack_proto, trig_proto
 
-    # -- 9. the probe scripts (flagship plan, B=32): counts from 0 around them
+    # -- 9. the probe scripts (trig_proto on the flagship plan, B=32;
+    # pack_proto on its three plans): counts from 0 around them
     pk.reset_launch_counts()
     check(trig_proto.main([]) == 0, "trig_proto failed")
-    check(pack_proto.main([]) == 0, "pack_proto failed")
+    records = {}
+    for name in PROBE_PLANS:
+        t0 = time.perf_counter()
+        records[name] = pack_proto.run(name, "cuda")
+        print(f"[chip_smoke] pack_proto --plan {name}: {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
-    launches = {name: getattr(pk, name).launches for name in PROBE_REPLACES}
+    launches = {name: getattr(pk, name).launches for name in (*PROBE_REPLACES, *PROBE_CC)}
     print(f"[chip_smoke] probe-script launches: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the probe scripts")
@@ -1258,9 +1291,12 @@ def probe_phases(dev, card, gen):
     def pair(g):
         return [getattr(plan, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn")]
 
+    def group_rows(pl, g):
+        return (getattr(pl, f"pos_{g}"), getattr(pl, f"shift_{g}"), pl.spec, pl.Wc, pl.Ws,
+                pl.meta["S_ext"], g == "x")
+
     def rows(g):
-        return (getattr(plan, f"pos_{g}"), getattr(plan, f"shift_{g}"), plan.spec,
-                plan.Wc, plan.Ws, L, g == "x")
+        return group_rows(plan, g)
 
     seeds = {g: [torch.from_numpy(s).to(dev) for s in pk.phase_seeds(*pair(g)[:3], K, L)]
              for g in "xy"}
@@ -1276,8 +1312,8 @@ def probe_phases(dev, card, gen):
         return impl(f, *rows(g), cdt)
 
     def padj(g, cdt, impl):
-        return (impl(p[g], *rows(g), N, cdt) if impl is pk.backproject_group_packed
-                else impl(p[g], *rows(g), cdt))
+        return (impl(p[g], *rows(g), cdt) if impl is pk._backproject_group_packed
+                else impl(p[g], *rows(g), N, cdt))
 
     kernels = {
         "project_pair_group_doubling": (dbl, pk.project_pair_group_doubling,
@@ -1290,23 +1326,35 @@ def probe_phases(dev, card, gen):
     }
     errs = {}
     check_kernels(kernels, errs)
+    # row 6's CUDA-core kernels, f32 and bf16 operands: the A/B baseline
+    check_kernels({"project_group_packed CUDA-core": (pfwd, pk._project_group_packed_cc,
+                                                      pk._project_group_packed),
+                   "backproject_group_packed CUDA-core": (padj, pk._backproject_group_packed_cc,
+                                                          pk._backproject_group_packed)}, errs)
     bf16, f32 = torch.bfloat16, torch.float32
     for g in "xy":
         # the packed kernels with exact trig in bf16 (the probe's like-with-like pair)
-        r = rel(pk.project_group_packed(f, *rows(g), bf16, doubling=False),
-                pk._project_group_packed(f, *rows(g), bf16, doubling=False))
-        ra = rel(pk.backproject_group_packed(p[g], *rows(g), N, bf16, doubling=False),
-                 pk._backproject_group_packed(p[g], *rows(g), bf16, doubling=False))
-        print(f"[check] packed exact-trig bf16 group {g}: fwd rel {r:.3e}, adj rel {ra:.3e} "
-              f"(tol 5e-3)")
-        check(r <= TOL["bfloat16"] and ra <= TOL["bfloat16"], "packed exact-trig kernel")
-        # float32: packed is the per-angle operator of the CUDA-core kernels
-        # (radon_group.cu), the kernels the probe was built to A/B against
-        r = rel(pk.project_group_packed(f, *rows(g), f32), ck._project_group_cc(f, *rows(g), f32))
-        ra = rel(pk.backproject_group_packed(p[g], *rows(g), N, f32),
+        for label, kf, ka in (("tensor-core", pk.project_group_packed,
+                               pk.backproject_group_packed),
+                              ("CUDA-core", pk._project_group_packed_cc,
+                               pk._backproject_group_packed_cc)):
+            r = rel(kf(f, *rows(g), bf16, doubling=False),
+                    pk._project_group_packed(f, *rows(g), bf16, doubling=False))
+            ra = rel(ka(p[g], *rows(g), N, bf16, doubling=False),
+                     pk._backproject_group_packed(p[g], *rows(g), bf16, doubling=False))
+            print(f"[check] packed {label} exact-trig bf16 group {g}: fwd rel {r:.3e}, adj rel "
+                  f"{ra:.3e} (tol 5e-3)")
+            check(r <= TOL["bfloat16"] and ra <= TOL["bfloat16"],
+                  f"packed {label} exact-trig kernel")
+        # float32: the CUDA-core packed kernels are the per-angle operator of
+        # the CUDA-core kernels (radon_group.cu), the kernels they were built
+        # to A/B against
+        r = rel(pk._project_group_packed_cc(f, *rows(g), f32),
+                ck._project_group_cc(f, *rows(g), f32))
+        ra = rel(pk._backproject_group_packed_cc(p[g], *rows(g), N, f32),
                  ck._backproject_group_cc(p[g], *rows(g), N, f32))
-        print(f"[check] packed vs the CUDA-core per-angle kernels, f32 group {g}: fwd rel "
-              f"{r:.3e}, adj rel {ra:.3e} (tol 1e-5)")
+        print(f"[check] packed CUDA-core vs the CUDA-core per-angle kernels, f32 group {g}: fwd "
+              f"rel {r:.3e}, adj rel {ra:.3e} (tol 1e-5)")
         check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the CUDA-core ones in f32")
         # doubling against the exact-trig CUDA-core pair kernel: the probe's 2e-2
         for cdt in (f32, bf16):
@@ -1316,17 +1364,100 @@ def probe_phases(dev, card, gen):
             print(f"[check] doubling vs exact-trig CUDA-core pair kernel, {cdt} group {g}: "
                   f"rel {r:.3e} (tol 2e-2)")
             check(r < 2e-2, "doubling drifts from the exact-trig pair kernel")
-        # the packed pair is an exact transpose in float32
+        # the CUDA-core packed pair is an exact transpose in float32
         x = torch.randn(B, N, N, generator=gen, device=dev)
         y = torch.randn(B, m[f"A_{g}"], S, generator=gen, device=dev)
-        lhs = torch.vdot(pk.project_group_packed(x, *rows(g), f32).double().flatten(),
+        lhs = torch.vdot(pk._project_group_packed_cc(x, *rows(g), f32).double().flatten(),
                          y.double().flatten())
         rhs = torch.vdot(x.double().flatten(),
-                         pk.backproject_group_packed(y, *rows(g), N, f32).double().flatten())
+                         pk._backproject_group_packed_cc(y, *rows(g), N, f32).double().flatten())
         dot_rel = float(abs(lhs - rhs) / abs(lhs))
-        print(f"[check] packed adjoint <Ax,y> vs <x,A^T y>, group {g}: rel {dot_rel:.3e} "
-              f"(tol 1e-5)")
-        check(dot_rel < 1e-5, f"packed adjoint test failed: {dot_rel}")
+        print(f"[check] packed CUDA-core adjoint <Ax,y> vs <x,A^T y>, group {g}: rel "
+              f"{dot_rel:.3e} (tol 1e-5)")
+        check(dot_rel < 1e-5, f"packed CUDA-core adjoint test failed: {dot_rel}")
+
+    # row 6's tensor-core kernels on every probe shape: against the plain
+    # version (bf16 doubling and exact trig ≤ 5e-3, f32 ≤ 1e-5), against the
+    # shipped tensor-core route reading the plan's tables (bf16 exact trig
+    # ≤ 5e-3, f32 ≤ 1e-5) and the f32 dot test (y = A x + noise: the split
+    # products' ~4e-6 error would dominate the ratio of two near-zero
+    # products of a random y)
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
+    from pdunet_tpu_torch.ops.radon.fan import build_fan_plan
+    from pdunet_tpu_torch.training.tasks import build_geometries
+
+    row6 = {}
+    shapes = [("flagship", plan, B, "xy")]
+    for name in PROBE_PLANS[1:]:
+        shapes.append((name, pack_proto.plan_for(name, dev, small=False)[0], 8, "xy"))
+    # rows that do not fill a tile (96², Np = 128) and an odd S (pdunet_fan's
+    # backing plan: S = 251, K = 179)
+    shapes.append(("parallel96", build_parallel_plan(
+        ParallelGeometry(image_size=96, n_angles=96).subsample(4), device=dev), 4, "xy"))
+    shapes.append(("fan", build_fan_plan(build_geometries(get_preset("pdunet_fan").geometry)[1],
+                                         device=dev).par_plan, 4, "xy"))
+    # N > 256: the forward's depth windows (384²: Np = 384, three windows
+    # of 128; 512²: two of 256, K = 335)
+    for n_ in (384, 512):
+        shapes.append((f"parallel{n_}", build_parallel_plan(
+            ParallelGeometry(image_size=n_, n_angles=96).subsample(4), device=dev), 2, "xy"))
+    for name, pl, Bs, groups in shapes:
+        n_ = pl.meta["N"]
+        targs = {g: (getattr(pl, f"pos_{g}"), getattr(pl, f"shift_{g}"), pl.spec,
+                     pl.meta["S_ext"]) for g in groups}
+        for g in groups:
+            A_ = pl.meta[f"A_{g}"]
+            tabs = {bf16: ck.build_group_tables(*targs[g]),
+                    f32: ck.build_group_split_tables(*targs[g])}
+            x = torch.randn(Bs, n_, n_, generator=gen, device=dev)
+            y = torch.randn(Bs, A_, pl.meta["S"], generator=gen, device=dev)
+            rw = group_rows(pl, g)
+            for cdt, dbl_ in ((bf16, None), (bf16, False), (f32, None)):
+                tname = str(cdt).split(".")[1]
+                label = f"{name} B={Bs} group {g} {tname}" + (
+                    " exact trig" if dbl_ is False else (" doubling" if cdt == bf16 else ""))
+                out_f = pk.project_group_packed(x, *rw, cdt, doubling=dbl_)
+                out_a = pk.backproject_group_packed(y, *rw, n_, cdt, doubling=dbl_)
+                ref_f = pk._project_group_packed(x, *rw, cdt, doubling=dbl_)
+                ref_a = pk._backproject_group_packed(y, *rw, cdt, doubling=dbl_)
+                torch.cuda.synchronize()
+                for op, o, r_ in (("fwd", out_f, ref_f), ("adj", out_a, ref_a)):
+                    check(bool(torch.isfinite(o).all()), f"row 6 {op} {label}: non-finite")
+                    e = rel(o, r_)
+                    mae = float((o - r_).abs().max())
+                    print(f"[check] row 6 packed-tc {op} {label} vs plain: rel {e:.3e} max_abs "
+                          f"{mae:.3e} (tol {TOL[tname]:.0e})")
+                    check(e <= TOL[tname], f"row 6 packed-tc {op} {label}: rel {e}")
+                    key = ("project_group_packed" if op == "fwd" else "backproject_group_packed",
+                           tname)
+                    ent = errs.setdefault(key, [0.0, 0.0])
+                    ent[0], ent[1] = max(ent[0], mae), max(ent[1], e)
+                    row6.setdefault(f"{name}_{op}_{tname}_vs_plain", []).append(e)
+                del ref_f, ref_a
+                if cdt == bf16 and dbl_ is None:
+                    continue  # the shipped route's trig is exact
+                sf = ck.project_group(x, *rw, cdt, tables=tabs[cdt])
+                sa = ck.backproject_group(y, *rw, n_, cdt, tables=tabs[cdt])
+                ef, ea = rel(out_f, sf), rel(out_a, sa)
+                print(f"[check] row 6 packed-tc vs the shipped tensor-core route, {label}: fwd "
+                      f"rel {ef:.3e}, adj rel {ea:.3e} (tol {TOL[tname]:.0e})")
+                check(ef <= TOL[tname] and ea <= TOL[tname],
+                      f"row 6 packed-tc differs from the shipped route, {label}")
+                row6.setdefault(f"{name}_{tname}_vs_shipped", []).append(max(ef, ea))
+            ax = pk.project_group_packed(x, *rw, f32)
+            yd = ax + 0.1 * ax.std() * torch.randn(ax.shape, generator=gen, device=dev)
+            lhs = torch.vdot(ax.double().flatten(), yd.double().flatten())
+            rhs = torch.vdot(x.double().flatten(),
+                             pk.backproject_group_packed(yd, *rw, n_, f32).double().flatten())
+            dot_rel = float(abs(lhs - rhs) / abs(lhs))
+            print(f"[check] row 6 packed-tc f32 adjoint <Ax,y> vs <x,A^T y>, {name} B={Bs} "
+                  f"group {g} (y = A x + noise): rel {dot_rel:.3e} (tol 1e-5)")
+            check(dot_rel < 1e-5, f"row 6 packed-tc adjoint test failed: {dot_rel}")
+            row6.setdefault(f"{name}_dot_rel_f32", []).append(dot_rel)
+            del tabs, x, y, ax, yd
+            torch.cuda.empty_cache()
+    row6 = {k: max(v) for k, v in row6.items()}
 
     # -- 11. timings beside the bound, the plain version and a matmul yardstick
     Tm = torch.randn(m["P_x"], N, 2 * K, generator=gen, device=dev).to(bf16)
@@ -1345,17 +1476,64 @@ def probe_phases(dev, card, gen):
         return fl, sum(cost(B, N, c, K, S)[1] for c in counts) / 2
 
     pairs, angles = (m["P_x"], m["P_y"]), (m["A_x"], m["A_y"])
+    stage1 = sum(4 * B * a * N * N * K for a in angles) / 2
     # packed stage 3 multiplies 4K rows of [Wc; Wc; −Ws; −Ws]: 4·B·A·K·S more FLOPs
     costs = {"project_pair_group_doubling": (mean_cost(pair_cost, pairs), pair_mm),
              "project_pair_group_notrig": (mean_cost(pair_cost, pairs), pair_mm),
              "project_group_packed": (mean_cost(group_cost, angles, extra=4), group_mm),
              "backproject_group_packed": (mean_cost(group_cost, angles), group_mm)}
+    tables = {g: {bf16: ck.build_group_tables(*rows(g)[:3], L),
+                  f32: ck.build_group_split_tables(*rows(g)[:3], L)} for g in "xy"}
     entries = []
     for name, kern in kernels.items():
         cost, mm = costs[name]
+        tc = name in ("project_group_packed", "backproject_group_packed")
+        # row 6's f32 route is split-bf16 on the tensor cores: its bound is
+        # stage 1 three times over the bf16 peak plus the rest over FP32
+        bound_f32 = split_bound_ms(cost, stage1) if tc else None
+        src = "radon_proto_tc.cu" if tc else "radon_proto.cu"
         entries += time_kernels({name: kern}, errs, launches, cost,
-                                "pdunet_tpu_torch/ops/radon/csrc/radon_proto.cu",
-                                PROBE_REPLACES, mm, card)
+                                f"pdunet_tpu_torch/ops/radon/csrc/{src}",
+                                PROBE_REPLACES, mm, card, bound_f32=bound_f32)
+        if not tc:
+            continue
+        e = entries[-1]
+        fwd_op = name == "project_group_packed"
+        call = kern[0]
+        cc = pk._project_group_packed_cc if fwd_op else pk._backproject_group_packed_cc
+        shipped = ck.project_group if fwd_op else ck.backproject_group
+
+        def mean_ms(fn):
+            return cuda_ms(lambda: [fn(g) for g in "xy"]) / 2
+
+        for cdt in (bf16, f32):
+            sfx = "" if cdt == bf16 else "_f32"
+            e[f"shipped_tc_ms{sfx}"] = mean_ms(
+                lambda g, c=cdt: (shipped(f, *rows(g), c, tables=tables[g][c]) if fwd_op else
+                                  shipped(p[g], *rows(g), N, c, tables=tables[g][c])))
+            e[f"cc_ms{sfx}"] = mean_ms(lambda g, c=cdt: call(g, c, cc))
+        e["exact_trig_ms"] = mean_ms(
+            lambda g: (pk.project_group_packed(f, *rows(g), bf16, doubling=False) if fwd_op
+                       else pk.backproject_group_packed(p[g], *rows(g), N, bf16, doubling=False)))
+        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_proto.cu"
+        e["replaces_cc"] = PROBE_REPLACES[name]
+        e["launches_cc"] = launches[PROBE_CC[0 if fwd_op else 1]]
+        other_op = "_adj_" if fwd_op else "_fwd_"
+        e["checks"] = {k: v for k, v in row6.items() if other_op not in k}
+        op = "fwd" if fwd_op else "adj"
+        e["probe_plans"] = {pname: {bk: {tn: rec[bk][tn][op] for tn in rec[bk]}
+                                    for bk in rec if bk.startswith("B")}
+                            for pname, rec in records.items()}
+        e["table_build_ms"] = {pname: rec.get("table_build_ms") for pname, rec in records.items()}
+        e["operand_dtype"] = ("bfloat16 (doubling trig; exact_trig_ms: exact) on tensor cores; "
+                              "*_f32: split-bf16 on tensor cores, exact trig; shipped_tc_ms: "
+                              "project_group / backproject_group from the trig tables; cc_ms: "
+                              "the CUDA-core packed kernels")
+        print(f"[time] {name}: packed-tc {e['ms']:.4f} / {e['ms_f32']:.4f} ms (bf16 doubling / "
+              f"f32), exact trig {e['exact_trig_ms']:.4f}; shipped tensor-core "
+              f"{e['shipped_tc_ms']:.4f} / {e['shipped_tc_ms_f32']:.4f}; CUDA-core packed "
+              f"{e['cc_ms']:.4f} / {e['cc_ms_f32']:.4f} (B={B}, mean of x and y) ({card})")
+    del tables
     for e in entries:
         e["path"] = "probe script (scripts/trig_proto.py, scripts/pack_proto.py), B=32"
     return entries
@@ -1389,7 +1567,7 @@ def bench_phase(card):
     check(n_fwd > 0 and n_adj > 0, "bench's headline did not run the pair kernels")
     check(ck.project_group.launches == ck.backproject_group.launches == 0,
           "a per-angle kernel ran on bench's headline path")
-    check(all(getattr(pk, n).launches == 0 for n in PROBE_REPLACES),
+    check(all(getattr(pk, n).launches == 0 for n in (*PROBE_REPLACES, *PROBE_CC)),
           "a probe kernel ran on bench's headline path")
     return row
 
@@ -1414,7 +1592,7 @@ def _other_launches(ck, pk, radial):
              ck._backproject_group_cc]
     other += ([ck.project_pair_group, ck.backproject_pair_group] if radial
               else [ck.project_group, ck.backproject_group])
-    other += [getattr(pk, n) for n in PROBE_REPLACES]
+    other += [getattr(pk, n) for n in (*PROBE_REPLACES, *PROBE_CC)]
     return sum(fn.launches for fn in other)
 
 
@@ -3289,16 +3467,21 @@ def main():
     hgmma = {**hgmma_counts(_build.build("radon_pair_tc"), TC_KERNELS),
              **hgmma_counts(_build.build("radon_pair_split"), SPLIT_KERNELS),
              **hgmma_counts(_build.build("radon_group_tc"), GROUP_TC_KERNELS),
-             **hgmma_counts(_build.build("radon_group_split"), GROUP_SPLIT_KERNELS)}
+             **hgmma_counts(_build.build("radon_group_split"), GROUP_SPLIT_KERNELS),
+             **hgmma_counts(_build.build("radon_proto_tc"), PROTO_TC_KERNELS)}
     print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu, "
-          f"radon_pair_split.cu, radon_group_tc.cu and radon_group_split.cu: {hgmma}")
+          f"radon_pair_split.cu, radon_group_tc.cu, radon_group_split.cu and "
+          f"radon_proto_tc.cu: {hgmma}")
+    proto_products = PROTO_TC_KERNELS[:6]
     for name in ("pair_tc_fwd", "pair_tc_adj", "pair_split_fwd", "pair_split_adj",
                  "group_tc_fwd", "group_tc_adj", "group_tc_fwd_stage3", "group_tc_adj_stage3t",
-                 "group_split_fwd", "group_split_adj"):
+                 "group_split_fwd", "group_split_adj", *proto_products, "proto_tc_fwd_stage3",
+                 "proto_tc_adj_stage3t"):
         check(hgmma[name] > 0, f"{name} (a tensor-core product) has no HGMMA instruction")
     # the split products: three wgmmas (hi·hi, hi·lo, lo·hi) per 16-deep
     # step, four steps per 64-deep chunk
-    for name in ("pair_split_fwd", "pair_split_adj", "group_split_fwd", "group_split_adj"):
+    for name in ("pair_split_fwd", "pair_split_adj", "group_split_fwd", "group_split_adj",
+                 *(n for n in proto_products if "split" in n)):
         check(hgmma[name] % 12 == 0, f"{name}: {hgmma[name]} HGMMA, not 3 per 16-deep step")
 
     from pdunet_tpu_torch.configs import get_preset
@@ -3648,6 +3831,11 @@ def main():
             e["hgmma_f32"] = hgmma["group_split_fwd" if fwd_op else "group_split_adj"]
     elapsed("phases 6-8 (radial)")
     probe_entries = probe_phases(dev, card, gen)
+    for e in probe_entries:
+        if e["name"] in ("project_group_packed", "backproject_group_packed"):
+            op = "fwd" if e["name"] == "project_group_packed" else "adj"
+            e["hgmma"] = {f"proto_tc_{op}{d}": hgmma[f"proto_tc_{op}{d}"] for d in ("", "_dbl")}
+            e["hgmma_f32"] = hgmma[f"proto_split_{op}"]
     elapsed("phases 9-11 (probes)")
     bench_row = bench_phase(card)
     elapsed("phase 12 (bench headline)")

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build", "build_all", "load_library"]
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("radon_pair", "radon_pair_tc", "radon_pair_split", "radon_group", "radon_group_tc",
-           "radon_group_split", "radon_proto")
+           "radon_group_split", "radon_proto", "radon_proto_tc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,24 +50,25 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
 
 
-def _target(name: str) -> tuple:
+def _target(name: str, defines: tuple = ()) -> tuple:
     src = _CSRC / f"{name}.cu"
     text = src.read_bytes()
     h = hashlib.sha256(text)
     for header in sorted(_INCLUDE.findall(text)):
         h.update((_CSRC / header.decode()).read_bytes())
+    h.update(" ".join(defines).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns
-    (name, lib path, Popen or None, tmp path)."""
-    src, lib = _target(name)
+def _start(name: str, defines: tuple = ()):
+    """Start nvcc for ``name`` (with ``-D`` for each of ``defines``) unless
+    its library exists; returns (name, lib path, Popen or None, tmp path)."""
+    src, lib = _target(name, defines)
     if lib.exists():
         return name, lib, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return name, lib, proc, tmp
@@ -91,14 +92,16 @@ def build_all(names=SOURCES) -> dict:
     return {s[0]: _finish(*s) for s in started}
 
 
-def build(name: str) -> pathlib.Path:
-    _finish(*_start(name))
-    return _target(name)[1]
+def build(name: str, defines: tuple = ()) -> pathlib.Path:
+    _finish(*_start(name, defines))
+    return _target(name, defines)[1]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
+def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (with the preprocessor ``defines``, a
+    test-only build of its own) if needed and load it (once per process)."""
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build(name)))
-        return _loaded[name]
+        key = (name, defines)
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(str(build(name, defines)))
+        return _loaded[key]

@@ -14,10 +14,15 @@ vary one thing of a shipped projector kernel each:
   (``project_group_packed`` / ``backproject_group_packed``, bodies
   ``_fwd_kernel_packed`` / ``_adj_kernel_packed``).
 
-The kernels are in ``csrc/radon_proto.cu``. For a CUDA tensor each wrapper
-launches its kernel (and raises if it cannot); for a CPU tensor it runs the
-plain version below, which computes what the Pallas body computes, with
-bf16 rounding where the body casts. ``doubling_trig_rows`` is the port of
+The pair probes' kernels are in ``csrc/radon_proto.cu`` (CUDA cores). The
+packed probe runs on the tensor cores (``csrc/radon_proto_tc.cu``: ``wgmma``
+with T̂ and φ computed on chip from the plan rows, no trig table); its
+CUDA-core kernels of ``csrc/radon_proto.cu`` stay as the A/B baseline,
+``_project_group_packed_cc`` / ``_backproject_group_packed_cc``, which no
+wrapper dispatches to. For a CUDA tensor each wrapper launches its kernel
+(and raises if it cannot); for a CPU tensor it runs the plain version
+below, which computes what the Pallas body computes, with bf16 rounding
+where the body casts. ``doubling_trig_rows`` is the port of
 ``pdunet_tpu/ops/radon/pallas_kernels.py::_doubling_trig_rows`` and
 ``phase_seeds`` of ``scripts/trig_proto.py::_phase_seeds``.
 
@@ -25,6 +30,8 @@ Trig of the packed pair (as in the Pallas bodies' ``_angle_tensors``):
 exact in float32, block doubling from in-kernel float32 seeds with bf16
 operands; ``doubling=`` overrides the rule (the probe times packed with
 exact trig against the shipped per-angle kernel, which uses exact trig).
+Both kernel families make the doubled rows with :func:`doubling_trig_rows`'
+products in its order, so their trig equals the plain version's.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
 call does not count.
@@ -49,7 +56,10 @@ from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     _q,
     _raise_on,
     _spectral_tensors,
+    _tc_dims,
+    _tc_pad,
     adjoint_splits,
+    group_adjoint_splits,
 )
 
 __all__ = ["doubling_trig_rows", "phase_seeds", "project_pair_group_doubling",
@@ -189,21 +199,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry point → argument types; all live in csrc/radon_proto.cu
+# C entry point → argument types; "radon_proto_<op>" lives in
+# csrc/radon_proto.cu, "radon_proto_tc_<op>" in csrc/radon_proto_tc.cu
 _ARGTYPES = {
     "radon_proto_pairdoubling": [_P] * 9 + [_I] * 5 + [_I, _I, _P],
     "radon_proto_pairnotrig": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_proto_packedproject": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
     "radon_proto_packedbackproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "radon_proto_tc_project": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _I, _P],
+    "radon_proto_tc_backproject": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _I, _P],
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
-    """Build (at first use) ``csrc/radon_proto.cu`` and bind ``name``."""
+    """Build (at first use) the library holding ``name`` and bind it."""
     from pdunet_tpu_torch.ops.radon._build import load_library
 
-    fn = getattr(load_library("radon_proto"), name)
+    fn = getattr(load_library(name.rsplit("_", 1)[0]), name)
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name]
     return fn
@@ -212,7 +225,7 @@ def _fn(name: str):
 def _launch(name, *args):
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+        ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]  # None: a null pointer
         return _fn(name)(*ptrs, stream)
 
 
@@ -284,6 +297,33 @@ def project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     return out
 
 
+def _packed_window(Np: int) -> int:
+    """Rows of T̂ one block of the packed tensor-core forward keeps in shared
+    memory (csrc/radon_proto_tc.cu, at most PT_DW_MAX = 256): the largest
+    multiple of 128 that divides Np (a multiple of 128) and is at most 256,
+    so the depth runs in Np/window windows, each a partial of the sums."""
+    return 256 if Np % 256 == 0 else 128
+
+
+def _packed_args(x, pos, shift, spec, Wc, Ws, N, cdt, doubling):
+    """Checks of a CUDA packed call; returns (bf16 flag, doubling flag, K, S, A, dev)."""
+    _check_device(x)
+    bf16 = _compute_flag(cdt)
+    K, S = Wc.shape
+    A = pos.shape[0]
+    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, x.device)
+    return bf16, int(_use_doubling(cdt, doubling)), K, S, A, x.device
+
+
+def _exact_in_f32(cdt, doubling):
+    """The float32 tensor-core kernels make exact trig only: block doubling
+    drifts by ~N·eps_f32, above the float32 contract."""
+    if cdt == torch.float32 and doubling:
+        raise ValueError("the float32 tensor-core packed kernels make exact trig only; "
+                         "doubling=True with float32 runs on the CPU or in "
+                         "_project_group_packed_cc / _backproject_group_packed_cc")
+
+
 def project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
                          cdt=torch.float32, doubling=None):
     """Packed re/im per-angle forward for one angle group:
@@ -291,23 +331,30 @@ def project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
     block doubling with bf16 operands, exact in float32).
 
     CPU tensors run :func:`_project_group_packed`; CUDA tensors launch the
-    kernel of ``csrc/radon_proto.cu``."""
+    tensor-core kernels of ``csrc/radon_proto_tc.cu`` (bf16 operands on
+    ``wgmma``, float32 as split-bf16 products, exact trig only), which
+    compute T̂ and φ on chip from the plan rows."""
     if f.device.type == "cpu":
         return _project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x,
                                      cdt, doubling)
-    _check_device(f)
-    bf16 = _compute_flag(cdt)
-    K, S = Wc.shape
     B, N, _ = f.shape
-    A = pos.shape[0]
-    dev = f.device
+    bf16, dbl, K, S, A, dev = _packed_args(f, pos, shift, spec, Wc, Ws, N, cdt, doubling)
+    _exact_in_f32(cdt, doubling)
     _check("f", f, (B, N, N), dev)
-    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    Np, K2p = _tc_dims(N, K)
+    Dw = _packed_window(Np)
+    bf = torch.bfloat16
     out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
-    rows = torch.empty((B, A, 4 * K), dtype=torch.float32, device=dev)
-    rc = _launch("radon_proto_packedproject", f, pos, shift, spec, Wc, Ws, rows, out,
-                 B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16,
-                 int(_use_doubling(cdt, doubling)))
+    fb = torch.empty((2 - bf16, B, Np, Np), dtype=bf, device=dev)
+    # partials of the four packed sums per k (bf16) or of (re, im) (split)
+    part = torch.empty((Np // Dw * (Np // 128), B, A, (4 if bf16 else 2) * K),
+                       dtype=torch.float32, device=dev)
+    Sp = _tc_pad(S)
+    sb = torch.empty((_tc_pad(B * A), 2 * K2p), dtype=bf, device=dev) if bf16 else None
+    w4 = torch.empty((2 * K2p, Sp), dtype=bf, device=dev) if bf16 else None
+    rc = _launch("radon_proto_tc_project", f, pos, shift, spec, Wc, Ws, fb, part, sb, w4, out,
+                 B, N, Np, A, K, K2p // 2, S, Sp, Dw, 2.0 * math.pi / L, int(contract_x),
+                 bf16, dbl)
     project_group_packed.launches += 1
     _raise_on(rc, "project_group_packed")
     return out
@@ -319,27 +366,73 @@ def backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N
     p (B, A_g, S) → (B, N, N) float32, the y group already transposed.
 
     CPU tensors run :func:`_backproject_group_packed`; CUDA tensors launch
-    the kernel of ``csrc/radon_proto.cu``."""
+    the tensor-core kernels of ``csrc/radon_proto_tc.cu``, the depth split
+    into :func:`cuda_kernels.group_adjoint_splits` slices (128-column output
+    tiles with float32 operands, 256 with bf16)."""
     if p.device.type == "cpu":
         return _backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x,
                                          cdt, doubling)
-    _check_device(p)
-    bf16 = _compute_flag(cdt)
-    K, S = Wc.shape
-    B, A, _ = p.shape
-    dev = p.device
+    B, A, S = p.shape
+    bf16, dbl, K, S, A, dev = _packed_args(p, pos, shift, spec, Wc, Ws, N, cdt, doubling)
+    _exact_in_f32(cdt, doubling)
     _check("p", p, (B, A, S), dev)
-    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
+    Np, K2p = _tc_dims(N, K)
+    G = group_adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count,
+                             256 if bf16 else 128)
+    bf = torch.bfloat16
+    Sp = _tc_pad(S)
+    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, A, K2p // 2, 2), dtype=torch.float32, device=dev)
+    part = torch.empty((G, B, N, N), dtype=torch.float32, device=dev) if G > 1 else None
+    pb = torch.empty((_tc_pad(B * A), Sp), dtype=bf, device=dev) if bf16 else None
+    wb = torch.empty((K2p, Sp), dtype=bf, device=dev) if bf16 else None
+    rc = _launch("radon_proto_tc_backproject", p, pos, shift, spec, Wc, Ws, pb, wb, shat, part,
+                 out, B, N, Np, A, K, K2p // 2, S, Sp, G, 2.0 * math.pi / L, int(contract_x),
+                 bf16, dbl)
+    backproject_group_packed.launches += 1
+    _raise_on(rc, "backproject_group_packed")
+    return out
+
+
+def _project_group_packed_cc(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
+                             cdt=torch.float32, doubling=None):
+    """The CUDA-core packed forward of ``csrc/radon_proto.cu``: the A/B
+    baseline of :func:`project_group_packed` (``scripts/pack_proto.py``,
+    ``chip_smoke.py``), which no dispatch reaches. CPU tensors run
+    :func:`_project_group_packed`."""
+    if f.device.type == "cpu":
+        return _project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x,
+                                     cdt, doubling)
+    B, N, _ = f.shape
+    bf16, dbl, K, S, A, dev = _packed_args(f, pos, shift, spec, Wc, Ws, N, cdt, doubling)
+    _check("f", f, (B, N, N), dev)
+    out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
+    rows = torch.empty((B, A, 4 * K), dtype=torch.float32, device=dev)
+    rc = _launch("radon_proto_packedproject", f, pos, shift, spec, Wc, Ws, rows, out,
+                 B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16, dbl)
+    _project_group_packed_cc.launches += 1
+    _raise_on(rc, "_project_group_packed_cc")
+    return out
+
+
+def _backproject_group_packed_cc(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
+                                 cdt=torch.float32, doubling=None):
+    """The CUDA-core packed adjoint of ``csrc/radon_proto.cu`` (see
+    :func:`_project_group_packed_cc`)."""
+    if p.device.type == "cpu":
+        return _backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x,
+                                         cdt, doubling)
+    B, A, S = p.shape
+    bf16, dbl, K, S, A, dev = _packed_args(p, pos, shift, spec, Wc, Ws, N, cdt, doubling)
+    _check("p", p, (B, A, S), dev)
     G = adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
     shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
-    part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
-            if G > 1 else None)
+    part = torch.empty((G, B, N, N), dtype=torch.float32, device=dev) if G > 1 else None
     rc = _launch("radon_proto_packedbackproject", p, pos, shift, spec, Wc, Ws, shat,
-                 part, out, B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16,
-                 int(_use_doubling(cdt, doubling)))
-    backproject_group_packed.launches += 1
-    _raise_on(rc, "backproject_group_packed")
+                 part, out, B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16, dbl)
+    _backproject_group_packed_cc.launches += 1
+    _raise_on(rc, "_backproject_group_packed_cc")
     return out
 
 
@@ -347,9 +440,12 @@ project_pair_group_doubling.launches = 0
 project_pair_group_notrig.launches = 0
 project_group_packed.launches = 0
 backproject_group_packed.launches = 0
+_project_group_packed_cc.launches = 0
+_backproject_group_packed_cc.launches = 0
 
 
 def reset_launch_counts():
     for fn in (project_pair_group_doubling, project_pair_group_notrig,
-               project_group_packed, backproject_group_packed):
+               project_group_packed, backproject_group_packed,
+               _project_group_packed_cc, _backproject_group_packed_cc):
         fn.launches = 0
