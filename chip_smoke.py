@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   1. build every CUDA source of the port with nvcc (sm_90a), all at once, and
      count the HGMMA (wgmma) instructions of each tensor-core kernel in the
      built library (cuobjdump -sass): the stage-1 / 1ᵀ kernels, row 6's
-     packed probe (radon_proto_tc.cu) included, must have some;
+     packed probe (radon_proto_tc.cu) and row 5's pair probe
+     (radon_pair_proto_tc.cu) included, must have some;
   2. at the serving path's shapes (pdunet_parallel: B=4, 256², 90 of 360
      angles, P=23 pairs per group, K=180), hold each kernel against its plain
      PyTorch version on the card, float32 and bf16 operands, both groups:
@@ -76,29 +77,38 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      calls on either route in turns, the host's time to enqueue one recon,
      and the profile on both routes;
   9. the two kernel probes as a user runs them (``python -m
-     pdunet_tpu_torch.scripts.trig_proto`` on the flagship plan, 256², 90
-     of 360 angles, B=32; ``pack_proto`` on its three plans: flagship,
-     pdunet_radial's 128-spoke plan at B' = 8, sino_unet_radial's dense
-     512-spoke plan at B' = 8 and 128 with the shipped f32 adjoint's
-     table probes; their own checks and timings); launch counters must
-     show each probe kernel and row 6's CUDA-core baseline ran;
+     pdunet_tpu_torch.scripts.trig_proto`` on its three plans: flagship,
+     256², 90 of 360 angles, B=32; sino_unet_parallel's dense 360-angle
+     plan at B = 8 and 128; pdunet_fan's backing plan at B = 4 and 128;
+     ``pack_proto`` on its three plans: flagship, pdunet_radial's 128-spoke
+     plan at B' = 8, sino_unet_radial's dense 512-spoke plan at B' = 8 and
+     128 with the shipped f32 adjoint's table probes; their own checks and
+     timings); launch counters must show each probe kernel and each
+     CUDA-core baseline of rows 5 and 6 ran;
  10. at the flagship shapes, each probe kernel (doubling and no-trig pair
-     forward, packed per-angle forward and adjoint on the tensor cores, and
-     row 6's CUDA-core kernels) against its plain version, f32 and bf16,
-     both groups (≤ 1e-5 / ≤ 5e-3); the packed kernels with exact trig in
-     bf16 too; the CUDA-core packed = the CUDA-core per-angle kernels in f32
-     (≤ 1e-5) and its adjoint dot test in f32; doubling within 2e-2 of the
-     exact-trig pair kernel; then row 6's tensor-core kernels on the
-     flagship groups (B = 32), both radial plans (B' = 8), a 96² plan (Np =
-     128 > N) and pdunet_fan's backing plan (odd S = 251) at B = 4, and
-     384² and 512² plans (the forward's depth windows, 3 x 128 and 2 x
-     256) at B = 2, both groups, bf16 with doubling and with exact trig and
-     f32: against the plain versions (≤ 5e-3 / ≤ 1e-5), against the
-     shipped tensor-core route from the plan's tables (bf16 exact trig ≤
-     5e-3, f32 ≤ 1e-5) and the f32 dot test (y = A x + noise, ≤ 1e-5);
- 11. CUDA-event timings of the probe kernels beside their bound, plain
-     version and stage-1 matmul yardstick; row 6 also beside the shipped
-     tensor-core route and its CUDA-core kernels;
+     forward and packed per-angle forward and adjoint, all on the tensor
+     cores, and the CUDA-core kernels of rows 5 and 6) against its plain
+     version, f32 and bf16, both groups (≤ 1e-5 / ≤ 5e-3); the packed
+     kernels with exact trig in bf16 too; the CUDA-core packed = the
+     CUDA-core per-angle kernels in f32 (≤ 1e-5) and its adjoint dot test
+     in f32; then row 5's tensor-core kernels on the flagship groups (B =
+     32), the dense plan (B = 8), pdunet_fan's backing plan (B = 4), a 96²
+     plan (B = 4) and 384² and 512² plans (B = 2), both groups, bf16 and
+     f32: against the plain versions (≤ 5e-3 / ≤ 1e-5), against the plain
+     versions of their own arithmetic (the same trig in tables, bf16 or
+     split) and doubling against the shipped tensor-core route from the
+     plan's tables (< 2e-2, the probe's check); then row 6's tensor-core
+     kernels on the flagship groups (B = 32), both radial plans (B' = 8), a
+     96² plan (Np = 128 > N) and pdunet_fan's backing plan (odd S = 251)
+     at B = 4, and 384² and 512² plans (the forwards' depth windows, 3 x
+     128 and 2 x 256) at B = 2, both groups, bf16 with doubling and with
+     exact trig and f32: against the plain versions (≤ 5e-3 / ≤ 1e-5),
+     against the shipped tensor-core route from the plan's tables (bf16
+     exact trig ≤ 5e-3, f32 ≤ 1e-5) and the f32 dot test (y = A x + noise,
+     ≤ 1e-5);
+ 11. CUDA-event timings of the probe kernels beside their bound (f32: the
+     split bound), plain version and stage-1 matmul yardstick, the shipped
+     tensor-core routes and their CUDA-core kernels;
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only;
  13. training: a few steps of ``training.loop.train`` for ``pdunet_parallel``
@@ -204,9 +214,10 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
-builders of both routes of the pair and of the per-angle kernels; row 6
-carries the shipped tensor-core route's and its CUDA-core kernels' times
-beside its own and the probe script's records of its three plans; rows 1-4
+builders of both routes of the pair and of the per-angle kernels; rows 5
+and 6 carry the shipped tensor-core route's and their CUDA-core kernels'
+times beside their own and their probe script's records of its three
+plans; rows 1-4
 carry their launches per train step, rows 1-2 also their launches on each
 slice-B path and on pdunet_fan's, their dense-plan split-route times and
 their times on the fan backing plans, rows 3-4 their launches on
@@ -1235,17 +1246,20 @@ def radial_phases(dev, card, gen):
     return entries, stats
 
 
-#: the probe kernels (row 5: csrc/radon_proto.cu; row 6: csrc/radon_proto_tc.cu)
-#: and the Pallas kernels they replace
+#: the probe kernels (row 5: csrc/radon_pair_proto_tc.cu; row 6:
+#: csrc/radon_proto_tc.cu) and the Pallas kernels they replace
 PROBE_REPLACES = {
     "project_pair_group_doubling": "scripts/trig_proto.py:169",
     "project_pair_group_notrig": "scripts/trig_proto.py:169",
     "project_group_packed": "scripts/pack_proto.py:102",
     "backproject_group_packed": "scripts/pack_proto.py:127",
 }
-#: row 6's CUDA-core kernels (csrc/radon_proto.cu), the A/B baseline of the
-#: tensor-core ones: the probe script runs them, no path may
-PROBE_CC = ("_project_group_packed_cc", "_backproject_group_packed_cc")
+#: the CUDA-core kernels of rows 5 and 6 (csrc/radon_proto.cu), the A/B
+#: baseline of their tensor-core ones: the probe scripts run them, no path may
+PROBE_CC = {"project_pair_group_doubling": "_project_pair_group_doubling_cc",
+            "project_pair_group_notrig": "_project_pair_group_notrig_cc",
+            "project_group_packed": "_project_group_packed_cc",
+            "backproject_group_packed": "_backproject_group_packed_cc"}
 #: the kernels of csrc/radon_proto_tc.cu; the first six are row 6's
 #: stage-1 / 1ᵀ products (bf16 with exact and doubling trig; split, exact)
 PROTO_TC_KERNELS = tuple(f"proto_tc_{op}{d}" for op in ("fwd", "adj") for d in ("", "_dbl")) + (
@@ -1253,30 +1267,71 @@ PROTO_TC_KERNELS = tuple(f"proto_tc_{op}{d}" for op in ("fwd", "adj") for d in (
     "proto_tc_prep", "proto_tc_round", "proto_tc_w4_prep", "proto_tc_w_prep",
     "proto_tc_fwd_stage3", "proto_tc_adj_stage3t", "proto_split_fwd_stage3",
     "proto_split_adj_stage3t", "proto_tc_reduce")
-#: the probe script's plans (phase 9), which phase 10 checks row 6 on too
+#: the kernels of csrc/radon_pair_proto_tc.cu; the first four are row 5's
+#: stage-1 products (bf16 and split; doubling and no-trig bodies)
+PAIR_PROTO_TC_KERNELS = tuple(f"pair_proto_{r}_fwd_{b}" for r in ("tc", "split")
+                              for b in ("dbl", "notrig")) + (
+    "pair_proto_prep", "pair_proto_prep_f16", "pair_proto_tc_stage3", "pair_proto_split_stage3")
+@contextlib.contextmanager
+def fp16_parts(ck):
+    """``ck._split`` making fp16 hi and lo parts (in the input's dtype)
+    while it is active: the split products of row 5's no-trig f32 kernel."""
+    split = ck._split
+
+    def split16(x):
+        hi = x.to(torch.float16).to(x.dtype)
+        return hi, (x - hi).to(torch.float16).to(x.dtype)
+
+    ck._split = split16
+    try:
+        yield split16
+    finally:
+        ck._split = split
+
+
+def pair_own_arithmetic(ck, x, trig, sgn, Wc, Ws, contract_x, cdt, fp16=False):
+    """Row 5's tensor-core forward in its own arithmetic and order
+    (``ck._pair_forward_tc``) from its six (P, N, K) f32 trig tensors, put
+    in tables: bf16; split into bf16 hi and lo parts; or (``fp16``, the
+    no-trig f32 kernel) into fp16 parts, F too."""
+    if cdt == torch.bfloat16:
+        return ck._pair_forward_tc(x, ck._interleave(trig, cdt), sgn, Wc, Ws, contract_x, cdt)
+    if not fp16:
+        return ck._pair_forward_tc(x, ck._split_tables(trig), sgn, Wc, Ws, contract_x, cdt)
+    tab = ck._interleave(trig, torch.float32)
+    with fp16_parts(ck) as split16:
+        return ck._pair_forward_tc(x, (torch.stack(split16(tab[0])), tab[1:]), sgn, Wc, Ws,
+                                   contract_x, cdt)
+
+
+#: pack_proto's plans (phase 9), which phase 10 checks row 6 on too
 PROBE_PLANS = ("flagship", "radial", "radial-dense")
 
 
 def probe_phases(dev, card, gen):
     """Phases 9-11: the two kernel probes as a user runs them, their kernels
-    against their plain versions (row 6 also against the shipped
-    tensor-core route), and their timings. Returns the kernels' JSON
+    against their plain versions (rows 5 and 6 also against the shipped
+    tensor-core routes), and their timings. Returns the kernels' JSON
     entries."""
     from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
     from pdunet_tpu_torch.ops.radon import proto_kernels as pk
     from pdunet_tpu_torch.scripts import pack_proto, trig_proto
 
-    # -- 9. the probe scripts (trig_proto on the flagship plan, B=32;
-    # pack_proto on its three plans): counts from 0 around them
+    # -- 9. the probe scripts (trig_proto and pack_proto, each on its three
+    # plans): counts from 0 around them
     pk.reset_launch_counts()
-    check(trig_proto.main([]) == 0, "trig_proto failed")
-    records = {}
+    trig_records, records = {}, {}
+    for name in trig_proto.PLANS:
+        t0 = time.perf_counter()
+        trig_records[name] = trig_proto.run(name, "cuda")
+        print(f"[chip_smoke] trig_proto --plan {name}: {time.perf_counter() - t0:.1f} s")
     for name in PROBE_PLANS:
         t0 = time.perf_counter()
         records[name] = pack_proto.run(name, "cuda")
         print(f"[chip_smoke] pack_proto --plan {name}: {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
-    launches = {name: getattr(pk, name).launches for name in (*PROBE_REPLACES, *PROBE_CC)}
+    launches = {name: getattr(pk, name).launches
+                for name in (*PROBE_REPLACES, *PROBE_CC.values())}
     print(f"[chip_smoke] probe-script launches: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the probe scripts")
@@ -1288,8 +1343,11 @@ def probe_phases(dev, card, gen):
     print(f"[chip_smoke] probe plan: B={B} N={N} S={S} K={K} L={L} P_x={m['P_x']} "
           f"P_y={m['P_y']} A_x={m['A_x']} A_y={m['A_y']}")
 
+    def pair_of(pl, g):
+        return [getattr(pl, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn")]
+
     def pair(g):
-        return [getattr(plan, f"pair_{nm}_{g}") for nm in ("pos", "sha", "shb", "sgn")]
+        return pair_of(plan, g)
 
     def group_rows(pl, g):
         return (getattr(pl, f"pos_{g}"), getattr(pl, f"shift_{g}"), pl.spec, pl.Wc, pl.Ws,
@@ -1298,8 +1356,11 @@ def probe_phases(dev, card, gen):
     def rows(g):
         return group_rows(plan, g)
 
-    seeds = {g: [torch.from_numpy(s).to(dev) for s in pk.phase_seeds(*pair(g)[:3], K, L)]
-             for g in "xy"}
+    def seeds_of(pl, g):
+        return [torch.from_numpy(s).to(dev)
+                for s in pk.phase_seeds(*pair_of(pl, g)[:3], pl.meta["K"], pl.meta["S_ext"])]
+
+    seeds = {g: seeds_of(plan, g) for g in "xy"}
     p = {g: torch.randn(B, m[f"A_{g}"], S, generator=gen, device=dev) for g in "xy"}
 
     def dbl(g, cdt, impl):
@@ -1326,11 +1387,9 @@ def probe_phases(dev, card, gen):
     }
     errs = {}
     check_kernels(kernels, errs)
-    # row 6's CUDA-core kernels, f32 and bf16 operands: the A/B baseline
-    check_kernels({"project_group_packed CUDA-core": (pfwd, pk._project_group_packed_cc,
-                                                      pk._project_group_packed),
-                   "backproject_group_packed CUDA-core": (padj, pk._backproject_group_packed_cc,
-                                                          pk._backproject_group_packed)}, errs)
+    # the CUDA-core kernels of rows 5 and 6, f32 and bf16 operands: the A/B baseline
+    check_kernels({f"{name} CUDA-core": (call, getattr(pk, PROBE_CC[name]), plain)
+                   for name, (call, _, plain) in kernels.items()}, errs)
     bf16, f32 = torch.bfloat16, torch.float32
     for g in "xy":
         # the packed kernels with exact trig in bf16 (the probe's like-with-like pair)
@@ -1356,14 +1415,6 @@ def probe_phases(dev, card, gen):
         print(f"[check] packed CUDA-core vs the CUDA-core per-angle kernels, f32 group {g}: fwd "
               f"rel {r:.3e}, adj rel {ra:.3e} (tol 1e-5)")
         check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the CUDA-core ones in f32")
-        # doubling against the exact-trig CUDA-core pair kernel: the probe's 2e-2
-        for cdt in (f32, bf16):
-            r = rel(dbl(g, cdt, pk.project_pair_group_doubling),
-                    ck._project_pair_cc(f, *pair(g), plan.spec, plan.Wc, plan.Ws, L,
-                                        g == "x", cdt))
-            print(f"[check] doubling vs exact-trig CUDA-core pair kernel, {cdt} group {g}: "
-                  f"rel {r:.3e} (tol 2e-2)")
-            check(r < 2e-2, "doubling drifts from the exact-trig pair kernel")
         # the CUDA-core packed pair is an exact transpose in float32
         x = torch.randn(B, N, N, generator=gen, device=dev)
         y = torch.randn(B, m[f"A_{g}"], S, generator=gen, device=dev)
@@ -1376,32 +1427,98 @@ def probe_phases(dev, card, gen):
               f"{dot_rel:.3e} (tol 1e-5)")
         check(dot_rel < 1e-5, f"packed CUDA-core adjoint test failed: {dot_rel}")
 
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
+    from pdunet_tpu_torch.ops.radon.fan import build_fan_plan
+    from pdunet_tpu_torch.training.tasks import build_geometries
+
+    # rows that do not fill a tile (96², Np = 128), pdunet_fan's backing plan
+    # (sign +1 pairs, odd S = 251, K = 179) and N > 256: the forwards' depth
+    # windows (384²: Np = 384, three windows of 128; 512²: two of 256, K = 335)
+    extra = {"parallel96": build_parallel_plan(
+                 ParallelGeometry(image_size=96, n_angles=96).subsample(4), device=dev),
+             "fan": build_fan_plan(build_geometries(get_preset("pdunet_fan").geometry)[1],
+                                   device=dev).par_plan}
+    for n_ in (384, 512):
+        extra[f"parallel{n_}"] = build_parallel_plan(
+            ParallelGeometry(image_size=n_, n_angles=96).subsample(4), device=dev)
+
+    # row 5's tensor-core kernels on every probe shape, both groups, bf16 and
+    # f32: against the plain versions (≤ 5e-3 / ≤ 1e-5), against the plain
+    # version of their own arithmetic (pair_own_arithmetic: the same trig in
+    # tables, bf16 or split into hi and lo), and doubling against the
+    # shipped tensor-core route from the plan's tables (< 2e-2, the probe's
+    # check). The images come from a generator of their own, so that these
+    # checks draw the same inputs whichever phases ran before.
+    row5 = {}
+    gen5 = torch.Generator(device=dev).manual_seed(5)
+    shapes5 = [("flagship", plan, B), ("dense", trig_proto.plan_for("dense", dev, False)[0], 8),
+               ("fan", extra["fan"], 4), ("parallel96", extra["parallel96"], 4),
+               ("parallel384", extra["parallel384"], 2),
+               ("parallel512", extra["parallel512"], 2)]
+    for name, pl, Bs in shapes5:
+        n_, K_, L_ = pl.meta["N"], pl.meta["K"], pl.meta["S_ext"]
+        x = torch.randn(Bs, n_, n_, generator=gen5, device=dev)
+        for g in "xy":
+            pr = pair_of(pl, g)
+            sd = seeds_of(pl, g)
+            consts = (pl.spec, pl.Wc, pl.Ws)
+            tabs = {bf16: ck.build_pair_tables(*pr[:3], pl.spec, L_),
+                    f32: ck.build_pair_split_tables(*pr[:3], pl.spec, L_)}
+            trig = {"project_pair_group_doubling": pk._doubling_pair_trig(*sd, pl.spec, n_),
+                    "project_pair_group_notrig": pk._notrig_pair_trig(*pr[:3], pl.spec, L_)}
+            for cdt in (bf16, f32):
+                tname = str(cdt).split(".")[1]
+                outs = {"project_pair_group_doubling": (
+                            pk.project_pair_group_doubling(x, *sd, pr[3], *consts, g == "x", cdt),
+                            pk._project_pair_group_doubling(x, *sd, pr[3], *consts, g == "x",
+                                                            cdt)),
+                        "project_pair_group_notrig": (
+                            pk.project_pair_group_notrig(x, *pr, *consts, L_, g == "x", cdt),
+                            pk._project_pair_group_notrig(x, *pr, *consts, L_, g == "x", cdt))}
+                for kname, (o, r_) in outs.items():
+                    own = pair_own_arithmetic(ck, x, trig[kname], pr[3], pl.Wc, pl.Ws, g == "x",
+                                              cdt, fp16=kname == "project_pair_group_notrig")
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(o).all()), f"row 5 {kname} {name}: non-finite")
+                    e, e_own = rel(o, r_), rel(o, own)
+                    mae = float((o - r_).abs().max())
+                    print(f"[check] row 5 {kname} {name} B={Bs} group {g} {tname}: vs plain rel "
+                          f"{e:.3e} max_abs {mae:.3e}, vs its own arithmetic rel {e_own:.3e} "
+                          f"(tol {TOL[tname]:.0e})")
+                    check(e <= TOL[tname] and e_own <= TOL[tname],
+                          f"row 5 {kname} {name} {g} {tname}: rel {e} / {e_own}")
+                    ent = errs.setdefault((kname, tname), [0.0, 0.0])
+                    ent[0], ent[1] = max(ent[0], mae), max(ent[1], e)
+                    row5.setdefault(f"{kname}/{name}_{tname}_vs_plain", []).append(e)
+                    row5.setdefault(f"{kname}/{name}_{tname}_vs_own_arithmetic", []).append(e_own)
+                    del own
+                shipped = ck.project_pair_group(x, *pr, *consts, L_, g == "x", cdt,
+                                                tables=tabs[cdt])
+                e = rel(outs["project_pair_group_doubling"][0], shipped)
+                print(f"[check] row 5 doubling-tc vs the shipped tensor-core route, {name} B={Bs} "
+                      f"group {g} {tname}: rel {e:.3e} (tol 2e-2)")
+                check(e < 2e-2, f"row 5 doubling drifts from the shipped route, {name} {g}")
+                row5.setdefault(f"project_pair_group_doubling/{name}_{tname}_vs_shipped",
+                                []).append(e)
+                del outs, shipped
+            del tabs, trig
+        del x
+        torch.cuda.empty_cache()
+    row5 = {k: max(v) for k, v in row5.items()}
+
     # row 6's tensor-core kernels on every probe shape: against the plain
     # version (bf16 doubling and exact trig ≤ 5e-3, f32 ≤ 1e-5), against the
     # shipped tensor-core route reading the plan's tables (bf16 exact trig
     # ≤ 5e-3, f32 ≤ 1e-5) and the f32 dot test (y = A x + noise: the split
     # products' ~4e-6 error would dominate the ratio of two near-zero
     # products of a random y)
-    from pdunet_tpu_torch.configs import get_preset
-    from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
-    from pdunet_tpu_torch.ops.radon.fan import build_fan_plan
-    from pdunet_tpu_torch.training.tasks import build_geometries
-
     row6 = {}
     shapes = [("flagship", plan, B, "xy")]
     for name in PROBE_PLANS[1:]:
         shapes.append((name, pack_proto.plan_for(name, dev, small=False)[0], 8, "xy"))
-    # rows that do not fill a tile (96², Np = 128) and an odd S (pdunet_fan's
-    # backing plan: S = 251, K = 179)
-    shapes.append(("parallel96", build_parallel_plan(
-        ParallelGeometry(image_size=96, n_angles=96).subsample(4), device=dev), 4, "xy"))
-    shapes.append(("fan", build_fan_plan(build_geometries(get_preset("pdunet_fan").geometry)[1],
-                                         device=dev).par_plan, 4, "xy"))
-    # N > 256: the forward's depth windows (384²: Np = 384, three windows
-    # of 128; 512²: two of 256, K = 335)
-    for n_ in (384, 512):
-        shapes.append((f"parallel{n_}", build_parallel_plan(
-            ParallelGeometry(image_size=n_, n_angles=96).subsample(4), device=dev), 2, "xy"))
+    shapes += [(name, extra[name], 4 if name in ("parallel96", "fan") else 2, "xy")
+               for name in ("parallel96", "fan", "parallel384", "parallel512")]
     for name, pl, Bs, groups in shapes:
         n_ = pl.meta["N"]
         targs = {g: (getattr(pl, f"pos_{g}"), getattr(pl, f"shift_{g}"), pl.spec,
@@ -1458,6 +1575,7 @@ def probe_phases(dev, card, gen):
             del tabs, x, y, ax, yd
             torch.cuda.empty_cache()
     row6 = {k: max(v) for k, v in row6.items()}
+    del extra
 
     # -- 11. timings beside the bound, the plain version and a matmul yardstick
     Tm = torch.randn(m["P_x"], N, 2 * K, generator=gen, device=dev).to(bf16)
@@ -1476,48 +1594,72 @@ def probe_phases(dev, card, gen):
         return fl, sum(cost(B, N, c, K, S)[1] for c in counts) / 2
 
     pairs, angles = (m["P_x"], m["P_y"]), (m["A_x"], m["A_y"])
-    stage1 = sum(4 * B * a * N * N * K for a in angles) / 2
+    # stage 1's share of the flops, for the split bound (pairs / angles)
+    stage1 = {"pair": sum(4 * B * c * N * N * K for c in pairs) / 2,
+              "group": sum(4 * B * c * N * N * K for c in angles) / 2}
     # packed stage 3 multiplies 4K rows of [Wc; Wc; −Ws; −Ws]: 4·B·A·K·S more FLOPs
-    costs = {"project_pair_group_doubling": (mean_cost(pair_cost, pairs), pair_mm),
-             "project_pair_group_notrig": (mean_cost(pair_cost, pairs), pair_mm),
-             "project_group_packed": (mean_cost(group_cost, angles, extra=4), group_mm),
-             "backproject_group_packed": (mean_cost(group_cost, angles), group_mm)}
+    costs = {"project_pair_group_doubling": (mean_cost(pair_cost, pairs), pair_mm, "pair"),
+             "project_pair_group_notrig": (mean_cost(pair_cost, pairs), pair_mm, "pair"),
+             "project_group_packed": (mean_cost(group_cost, angles, extra=4), group_mm, "group"),
+             "backproject_group_packed": (mean_cost(group_cost, angles), group_mm, "group")}
     tables = {g: {bf16: ck.build_group_tables(*rows(g)[:3], L),
                   f32: ck.build_group_split_tables(*rows(g)[:3], L)} for g in "xy"}
+    pair_tabs = {g: {bf16: ck.build_pair_tables(*pair(g)[:3], plan.spec, L),
+                     f32: ck.build_pair_split_tables(*pair(g)[:3], plan.spec, L)} for g in "xy"}
     entries = []
+
+    def mean_ms(fn):
+        return cuda_ms(lambda: [fn(g) for g in "xy"]) / 2
+
     for name, kern in kernels.items():
-        cost, mm = costs[name]
-        tc = name in ("project_group_packed", "backproject_group_packed")
-        # row 6's f32 route is split-bf16 on the tensor cores: its bound is
-        # stage 1 three times over the bf16 peak plus the rest over FP32
-        bound_f32 = split_bound_ms(cost, stage1) if tc else None
-        src = "radon_proto_tc.cu" if tc else "radon_proto.cu"
+        cost, mm, kind = costs[name]
+        fwd_op = name != "backproject_group_packed"
+        row5_ = kind == "pair"
+        # both rows' f32 routes are split-bf16 on the tensor cores: their
+        # bound is stage 1 three times over the bf16 peak plus the rest over FP32
+        src = "radon_pair_proto_tc.cu" if row5_ else "radon_proto_tc.cu"
         entries += time_kernels({name: kern}, errs, launches, cost,
                                 f"pdunet_tpu_torch/ops/radon/csrc/{src}",
-                                PROBE_REPLACES, mm, card, bound_f32=bound_f32)
-        if not tc:
-            continue
+                                PROBE_REPLACES, mm, card,
+                                bound_f32=split_bound_ms(cost, stage1[kind]))
         e = entries[-1]
-        fwd_op = name == "project_group_packed"
         call = kern[0]
-        cc = pk._project_group_packed_cc if fwd_op else pk._backproject_group_packed_cc
-        shipped = ck.project_group if fwd_op else ck.backproject_group
-
-        def mean_ms(fn):
-            return cuda_ms(lambda: [fn(g) for g in "xy"]) / 2
-
+        cc = getattr(pk, PROBE_CC[name])
         for cdt in (bf16, f32):
             sfx = "" if cdt == bf16 else "_f32"
-            e[f"shipped_tc_ms{sfx}"] = mean_ms(
-                lambda g, c=cdt: (shipped(f, *rows(g), c, tables=tables[g][c]) if fwd_op else
-                                  shipped(p[g], *rows(g), N, c, tables=tables[g][c])))
+            if row5_:
+                e[f"shipped_tc_ms{sfx}"] = mean_ms(
+                    lambda g, c=cdt: ck.project_pair_group(f, *pair(g), plan.spec, plan.Wc,
+                                                           plan.Ws, L, g == "x", c,
+                                                           tables=pair_tabs[g][c]))
+            else:
+                shipped = ck.project_group if fwd_op else ck.backproject_group
+                e[f"shipped_tc_ms{sfx}"] = mean_ms(
+                    lambda g, c=cdt: (shipped(f, *rows(g), c, tables=tables[g][c]) if fwd_op else
+                                      shipped(p[g], *rows(g), N, c, tables=tables[g][c])))
             e[f"cc_ms{sfx}"] = mean_ms(lambda g, c=cdt: call(g, c, cc))
+        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_proto.cu"
+        e["replaces_cc"] = PROBE_REPLACES[name]
+        e["launches_cc"] = launches[PROBE_CC[name]]
+        if row5_:
+            e["checks"] = {k.split("/", 1)[1]: v for k, v in row5.items()
+                           if k.startswith(name + "/")}
+            e["probe_plans"] = {pname: {bk: rec[bk] for bk in rec if bk.startswith("B")}
+                                for pname, rec in trig_records.items()}
+            e["table_build_ms"] = {pname: rec.get("table_build_ms")
+                                   for pname, rec in trig_records.items()}
+            e["operand_dtype"] = ("bfloat16 on tensor cores (T̂ and both members' φ made on "
+                                  "chip); *_f32: split-bf16 on tensor cores; shipped_tc_ms: "
+                                  "project_pair_group from the trig tables (radon_pair_tc.cu / "
+                                  "radon_pair_split.cu); cc_ms: the CUDA-core row-5 kernels")
+            print(f"[time] {name}: tensor-core {e['ms']:.4f} / {e['ms_f32']:.4f} ms (bf16 / "
+                  f"f32); shipped tensor-core {e['shipped_tc_ms']:.4f} / "
+                  f"{e['shipped_tc_ms_f32']:.4f}; CUDA-core {e['cc_ms']:.4f} / "
+                  f"{e['cc_ms_f32']:.4f} (B={B}, mean of x and y) ({card})")
+            continue
         e["exact_trig_ms"] = mean_ms(
             lambda g: (pk.project_group_packed(f, *rows(g), bf16, doubling=False) if fwd_op
                        else pk.backproject_group_packed(p[g], *rows(g), N, bf16, doubling=False)))
-        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_proto.cu"
-        e["replaces_cc"] = PROBE_REPLACES[name]
-        e["launches_cc"] = launches[PROBE_CC[0 if fwd_op else 1]]
         other_op = "_adj_" if fwd_op else "_fwd_"
         e["checks"] = {k: v for k, v in row6.items() if other_op not in k}
         op = "fwd" if fwd_op else "adj"
@@ -1533,9 +1675,10 @@ def probe_phases(dev, card, gen):
               f"f32), exact trig {e['exact_trig_ms']:.4f}; shipped tensor-core "
               f"{e['shipped_tc_ms']:.4f} / {e['shipped_tc_ms_f32']:.4f}; CUDA-core packed "
               f"{e['cc_ms']:.4f} / {e['cc_ms_f32']:.4f} (B={B}, mean of x and y) ({card})")
-    del tables
+    del tables, pair_tabs
     for e in entries:
-        e["path"] = "probe script (scripts/trig_proto.py, scripts/pack_proto.py), B=32"
+        e["path"] = ("probe scripts (pdunet_tpu_torch.scripts.trig_proto / pack_proto), "
+                     "flagship plan, B=32")
     return entries
 
 
@@ -1567,7 +1710,7 @@ def bench_phase(card):
     check(n_fwd > 0 and n_adj > 0, "bench's headline did not run the pair kernels")
     check(ck.project_group.launches == ck.backproject_group.launches == 0,
           "a per-angle kernel ran on bench's headline path")
-    check(all(getattr(pk, n).launches == 0 for n in (*PROBE_REPLACES, *PROBE_CC)),
+    check(all(getattr(pk, n).launches == 0 for n in (*PROBE_REPLACES, *PROBE_CC.values())),
           "a probe kernel ran on bench's headline path")
     return row
 
@@ -1592,7 +1735,7 @@ def _other_launches(ck, pk, radial):
              ck._backproject_group_cc]
     other += ([ck.project_pair_group, ck.backproject_pair_group] if radial
               else [ck.project_group, ck.backproject_group])
-    other += [getattr(pk, n) for n in (*PROBE_REPLACES, *PROBE_CC)]
+    other += [getattr(pk, n) for n in (*PROBE_REPLACES, *PROBE_CC.values())]
     return sum(fn.launches for fn in other)
 
 
@@ -3468,11 +3611,12 @@ def main():
              **hgmma_counts(_build.build("radon_pair_split"), SPLIT_KERNELS),
              **hgmma_counts(_build.build("radon_group_tc"), GROUP_TC_KERNELS),
              **hgmma_counts(_build.build("radon_group_split"), GROUP_SPLIT_KERNELS),
-             **hgmma_counts(_build.build("radon_proto_tc"), PROTO_TC_KERNELS)}
+             **hgmma_counts(_build.build("radon_proto_tc"), PROTO_TC_KERNELS),
+             **hgmma_counts(_build.build("radon_pair_proto_tc"), PAIR_PROTO_TC_KERNELS)}
     print(f"[chip_smoke] HGMMA instructions per kernel of radon_pair_tc.cu, "
-          f"radon_pair_split.cu, radon_group_tc.cu, radon_group_split.cu and "
-          f"radon_proto_tc.cu: {hgmma}")
-    proto_products = PROTO_TC_KERNELS[:6]
+          f"radon_pair_split.cu, radon_group_tc.cu, radon_group_split.cu, "
+          f"radon_proto_tc.cu and radon_pair_proto_tc.cu: {hgmma}")
+    proto_products = PROTO_TC_KERNELS[:6] + PAIR_PROTO_TC_KERNELS[:4]
     for name in ("pair_tc_fwd", "pair_tc_adj", "pair_split_fwd", "pair_split_adj",
                  "group_tc_fwd", "group_tc_adj", "group_tc_fwd_stage3", "group_tc_adj_stage3t",
                  "group_split_fwd", "group_split_adj", *proto_products, "proto_tc_fwd_stage3",
@@ -3836,6 +3980,10 @@ def main():
             op = "fwd" if e["name"] == "project_group_packed" else "adj"
             e["hgmma"] = {f"proto_tc_{op}{d}": hgmma[f"proto_tc_{op}{d}"] for d in ("", "_dbl")}
             e["hgmma_f32"] = hgmma[f"proto_split_{op}"]
+        else:
+            body = "dbl" if e["name"] == "project_pair_group_doubling" else "notrig"
+            e["hgmma"] = hgmma[f"pair_proto_tc_fwd_{body}"]
+            e["hgmma_f32"] = hgmma[f"pair_proto_split_fwd_{body}"]
     elapsed("phases 9-11 (probes)")
     bench_row = bench_phase(card)
     elapsed("phase 12 (bench headline)")

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, at first use,
 into ``pdunet_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is of the
-source and the ``csrc/*.cuh`` headers it includes, so an edited kernel or
-header is rebuilt). Build or load failures raise.
+source and the ``csrc/*.cuh`` headers it includes, directly or through
+another header, so an edited kernel or header is rebuilt). Build or load failures raise.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build", "build_all", "load_library"]
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("radon_pair", "radon_pair_tc", "radon_pair_split", "radon_group", "radon_group_tc",
-           "radon_group_split", "radon_proto", "radon_proto_tc")
+           "radon_group_split", "radon_proto", "radon_proto_tc", "radon_pair_proto_tc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,12 +50,24 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
 
 
+def _headers(text: bytes) -> list:
+    """The ``csrc/`` headers that ``text`` includes, directly or through
+    another header, each once, in a fixed order."""
+    seen, todo = [], sorted(_INCLUDE.findall(text))
+    while todo:
+        header = todo.pop(0).decode()
+        if header not in seen:
+            seen.append(header)
+            todo += sorted(_INCLUDE.findall((_CSRC / header).read_bytes()))
+    return seen
+
+
 def _target(name: str, defines: tuple = ()) -> tuple:
     src = _CSRC / f"{name}.cu"
     text = src.read_bytes()
     h = hashlib.sha256(text)
-    for header in sorted(_INCLUDE.findall(text)):
-        h.update((_CSRC / header.decode()).read_bytes())
+    for header in _headers(text):
+        h.update((_CSRC / header).read_bytes())
     h.update(" ".join(defines).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -14,12 +14,15 @@ vary one thing of a shipped projector kernel each:
   (``project_group_packed`` / ``backproject_group_packed``, bodies
   ``_fwd_kernel_packed`` / ``_adj_kernel_packed``).
 
-The pair probes' kernels are in ``csrc/radon_proto.cu`` (CUDA cores). The
-packed probe runs on the tensor cores (``csrc/radon_proto_tc.cu``: ``wgmma``
-with T̂ and φ computed on chip from the plan rows, no trig table); its
-CUDA-core kernels of ``csrc/radon_proto.cu`` stay as the A/B baseline,
-``_project_group_packed_cc`` / ``_backproject_group_packed_cc``, which no
-wrapper dispatches to. For a CUDA tensor each wrapper launches its kernel
+Both probes run on the tensor cores with their trig made on chip, no trig
+table read: the pair probe in ``csrc/radon_pair_proto_tc.cu`` (``wgmma``,
+T̂ and both members' φ from the host seeds, or the no-trig mul-adds from
+the plan rows), the packed probe in ``csrc/radon_proto_tc.cu`` (T̂ and φ
+from the plan rows). Their CUDA-core kernels of ``csrc/radon_proto.cu``
+stay as the A/B baseline, ``_project_pair_group_doubling_cc`` /
+``_project_pair_group_notrig_cc`` and ``_project_group_packed_cc`` /
+``_backproject_group_packed_cc``, which no wrapper dispatches to. For a
+CUDA tensor each wrapper launches its kernel
 (and raises if it cannot); for a CPU tensor it runs the plain version
 below, which computes what the Pallas body computes, with bf16 rounding
 where the body casts. ``doubling_trig_rows`` is the port of
@@ -106,34 +109,45 @@ def phase_seeds(pos, sha, shb, K: int, L: int):
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
-                                 contract_x: bool, cdt=torch.float32):
-    """Plain doubling pair forward: the mirror-pair forward with all six
-    (P, N, K) trig tensors built by :func:`doubling_trig_rows` from the
-    (P, 3K) seeds of :func:`phase_seeds`, in float32 whatever ``cdt``."""
-    N = f.shape[-1]
+def _doubling_pair_trig(seeds0, steps, spec, N: int):
+    """The doubling pair forward's six (P, N, K) trig tensors in float32,
+    unrounded: T̂ (spec·c, −spec·s) and both members' φ (c, s), each family
+    built by :func:`doubling_trig_rows` from the (P, 3K) seeds of
+    :func:`phase_seeds`."""
     K = spec.shape[0]
     fams = [doubling_trig_rows(seeds0[:, i * K:(i + 1) * K],
                                steps[:, i * K:(i + 1) * K], N) for i in range(3)]
     (tc, ts), (ca, sa), (cb, sb) = fams
-    return _pair_forward(f, _q(spec * tc, cdt), _q(-spec * ts, cdt),
-                         _q(ca, cdt), _q(sa, cdt), _q(cb, cdt), _q(sb, cdt),
-                         sgn, Wc, Ws, contract_x, cdt)
+    return spec * tc, -spec * ts, ca, sa, cb, sb
+
+
+def _notrig_pair_trig(pos, sha, shb, spec, L):
+    """The no-trig pair forward's six (P, N, K) tensors in float32,
+    unrounded: T̂ (spec + pos·kf, spec − pos·kf) and φ_m (sh_m·kf + 1,
+    sh_m·kf − 1)."""
+    k = _kfreq(spec.shape[0], L, pos.dtype, pos.device)
+    tk = pos[:, :, None] * k
+    ak = sha[:, :, None] * k
+    bk = shb[:, :, None] * k
+    return spec + tk, spec - tk, ak + 1.0, ak - 1.0, bk + 1.0, bk - 1.0
+
+
+def _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                 contract_x: bool, cdt=torch.float32):
+    """Plain doubling pair forward: the mirror-pair forward with all six
+    (P, N, K) trig tensors built in float32 by :func:`_doubling_pair_trig`,
+    then rounded to ``cdt``."""
+    trig = _doubling_pair_trig(seeds0, steps, spec, f.shape[-1])
+    return _pair_forward(f, *(_q(t, cdt) for t in trig), sgn, Wc, Ws, contract_x, cdt)
 
 
 def _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
                                contract_x: bool, cdt=torch.float32):
     """Plain no-trig pair forward: the six trig tensors replaced by
-    spec ± pos·kf and sh·kf ± 1 (wrong numbers, the shipped kernel's cost
-    without its trig)."""
-    k = _kfreq(spec.shape[0], L, pos.dtype, pos.device)
-    tk = pos[:, :, None] * k
-    ak = sha[:, :, None] * k
-    bk = shb[:, :, None] * k
-    return _pair_forward(f, _q(spec + tk, cdt), _q(spec - tk, cdt),
-                         _q(ak + 1.0, cdt), _q(ak - 1.0, cdt),
-                         _q(bk + 1.0, cdt), _q(bk - 1.0, cdt),
-                         sgn, Wc, Ws, contract_x, cdt)
+    spec ± pos·kf and sh·kf ± 1 (:func:`_notrig_pair_trig`; wrong numbers,
+    the shipped kernel's cost without its trig)."""
+    trig = _notrig_pair_trig(pos, sha, shb, spec, L)
+    return _pair_forward(f, *(_q(t, cdt) for t in trig), sgn, Wc, Ws, contract_x, cdt)
 
 
 def _use_doubling(cdt, doubling):
@@ -200,8 +214,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry point → argument types; "radon_proto_<op>" lives in
-# csrc/radon_proto.cu, "radon_proto_tc_<op>" in csrc/radon_proto_tc.cu
+# csrc/radon_proto.cu, "radon_proto_tc_<op>" in csrc/radon_proto_tc.cu,
+# "radon_pair_proto_tc_<op>" in csrc/radon_pair_proto_tc.cu
 _ARGTYPES = {
+    "radon_pair_proto_tc_doubling": [_P] * 10 + [_I] * 10 + [_P],
+    "radon_pair_proto_tc_notrig": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P],
     "radon_proto_pairdoubling": [_P] * 9 + [_I] * 5 + [_I, _I, _P],
     "radon_proto_pairnotrig": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_proto_packedproject": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
@@ -238,17 +255,8 @@ def _check_pair(f, sgn, spec, Wc, Ws, P, K, S, dev):
     _check("Ws", Ws, (K, S), dev)
 
 
-def project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
-                                contract_x: bool, cdt=torch.float32):
-    """Doubling-trig mirror-pair forward for one angle group:
-    f (B,N,N) → (B, 2P, S) float32, rows interleaved [pair0-a, pair0-b, ...];
-    ``seeds0``/``steps`` are the (P, 3K) arrays of :func:`phase_seeds`.
-
-    CPU tensors run :func:`_project_pair_group_doubling`; CUDA tensors launch
-    the kernel of ``csrc/radon_proto.cu``."""
-    if f.device.type == "cpu":
-        return _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
-                                            contract_x, cdt)
+def _doubling_args(f, seeds0, steps, sgn, spec, Wc, Ws, cdt):
+    """Checks of a CUDA doubling pair call; returns (bf16 flag, B, N, P, K, S, dev)."""
     _check_device(f)
     bf16 = _compute_flag(cdt)
     K, S = Wc.shape
@@ -258,25 +266,11 @@ def project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
     _check_pair(f, sgn, spec, Wc, Ws, P, K, S, dev)
     _check("seeds0", seeds0, (P, 3 * K), dev)
     _check("steps", steps, (P, 3 * K), dev)
-    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
-    rc = _launch("radon_proto_pairdoubling", f, seeds0, steps, sgn, spec, Wc, Ws,
-                 shat, out, B, N, P, K, S, int(contract_x), bf16)
-    project_pair_group_doubling.launches += 1
-    _raise_on(rc, "project_pair_group_doubling")
-    return out
+    return bf16, B, N, P, K, S, dev
 
 
-def project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
-                              contract_x: bool, cdt=torch.float32):
-    """No-trig mirror-pair forward (the free-trig cost probe; its numbers are
-    not a projection): f (B,N,N) → (B, 2P, S) float32.
-
-    CPU tensors run :func:`_project_pair_group_notrig`; CUDA tensors launch
-    the kernel of ``csrc/radon_proto.cu``."""
-    if f.device.type == "cpu":
-        return _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
-                                          contract_x, cdt)
+def _notrig_args(f, pos, sha, shb, sgn, spec, Wc, Ws, L, cdt):
+    """Checks of a CUDA no-trig pair call; returns (bf16 flag, B, N, P, K, S, dev)."""
     _check_device(f)
     bf16 = _compute_flag(cdt)
     K, S = Wc.shape
@@ -288,18 +282,119 @@ def project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     _check_pair(f, sgn, spec, Wc, Ws, P, K, S, dev)
     for name, t in (("pos", pos), ("sha", sha), ("shb", shb)):
         _check(name, t, (P, N), dev)
+    return bf16, B, N, P, K, S, dev
+
+
+#: the largest K whose Ŝ rows fit the shared memory of the pair stage 3
+#: (csrc/radon_tc.cuh pair_stage3: 8 rows x (2K + 512) floats ≤ 227 KB)
+_PAIR_STAGE3_MAX_K = (232448 // (8 * 4) - 8 * 64) // 2
+
+
+def _pair_tc_scratch(B, N, P, K, bf16, dev):
+    """(Np, Kp, Dw, fb, part) of a tensor-core pair probe call: 16-bit
+    scratch for F (bf16, or the split route's hi and lo planes, which the
+    no-trig kernel fills with fp16 bits) and the partials of both members'
+    Ŝ per depth window and row tile."""
+    if K > _PAIR_STAGE3_MAX_K:
+        raise ValueError(f"K={K} frequencies exceed the pair stage 3's shared memory "
+                         f"(at most {_PAIR_STAGE3_MAX_K})")
+    Np, K2p = _tc_dims(N, K)
+    Dw = _packed_window(Np)
+    fb = torch.empty((2 - bf16, B, Np, Np), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((Np // Dw * (Np // 128), B, 2 * P, K, 2), dtype=torch.float32,
+                       device=dev)
+    return Np, K2p // 2, Dw, fb, part
+
+
+def project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                contract_x: bool, cdt=torch.float32):
+    """Doubling-trig mirror-pair forward for one angle group:
+    f (B,N,N) → (B, 2P, S) float32, rows interleaved [pair0-a, pair0-b, ...];
+    ``seeds0``/``steps`` are the (P, 3K) arrays of :func:`phase_seeds`.
+
+    CPU tensors run :func:`_project_pair_group_doubling`; CUDA tensors launch
+    the tensor-core kernels of ``csrc/radon_pair_proto_tc.cu`` (bf16
+    operands on ``wgmma``, float32 as split-bf16 products), which make T̂
+    and both members' φ on chip from the seeds."""
+    if f.device.type == "cpu":
+        return _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                            contract_x, cdt)
+    bf16, B, N, P, K, S, dev = _doubling_args(f, seeds0, steps, sgn, spec, Wc, Ws, cdt)
+    Np, Kp, Dw, fb, part = _pair_tc_scratch(B, N, P, K, bf16, dev)
     out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
-    rc = _launch("radon_proto_pairnotrig", f, pos, sha, shb, sgn, spec, Wc, Ws,
-                 shat, out, B, N, P, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
+    rc = _launch("radon_pair_proto_tc_doubling", f, seeds0, steps, sgn, spec, Wc, Ws, fb, part,
+                 out, B, N, Np, P, K, Kp, S, Dw, int(contract_x), bf16)
+    project_pair_group_doubling.launches += 1
+    _raise_on(rc, "project_pair_group_doubling")
+    return out
+
+
+def project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                              contract_x: bool, cdt=torch.float32):
+    """No-trig mirror-pair forward (the free-trig cost probe; its numbers are
+    not a projection): f (B,N,N) → (B, 2P, S) float32.
+
+    CPU tensors run :func:`_project_pair_group_notrig`; CUDA tensors launch
+    the tensor-core kernels of ``csrc/radon_pair_proto_tc.cu``, which form
+    the mul-adds on chip from the plan rows (no table read). With float32
+    operands the split products take fp16 hi and lo parts (its numbers
+    cancel ~190x in stage 2, past what bf16 parts hold to 1e-5), so ``f``
+    must stay within fp16's range (|f| < 65504), or the output is not
+    finite."""
+    if f.device.type == "cpu":
+        return _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                                          contract_x, cdt)
+    bf16, B, N, P, K, S, dev = _notrig_args(f, pos, sha, shb, sgn, spec, Wc, Ws, L, cdt)
+    Np, Kp, Dw, fb, part = _pair_tc_scratch(B, N, P, K, bf16, dev)
+    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
+    rc = _launch("radon_pair_proto_tc_notrig", f, pos, sha, shb, sgn, spec, Wc, Ws, fb, part,
+                 out, B, N, Np, P, K, Kp, S, Dw, 2.0 * math.pi / L, int(contract_x), bf16)
     project_pair_group_notrig.launches += 1
     _raise_on(rc, "project_pair_group_notrig")
     return out
 
 
+def _project_pair_group_doubling_cc(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                    contract_x: bool, cdt=torch.float32):
+    """The CUDA-core doubling pair forward of ``csrc/radon_proto.cu``: the
+    A/B baseline of :func:`project_pair_group_doubling`
+    (``scripts/trig_proto.py``, ``chip_smoke.py``), which no dispatch
+    reaches. CPU tensors run :func:`_project_pair_group_doubling`."""
+    if f.device.type == "cpu":
+        return _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
+                                            contract_x, cdt)
+    bf16, B, N, P, K, S, dev = _doubling_args(f, seeds0, steps, sgn, spec, Wc, Ws, cdt)
+    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
+    rc = _launch("radon_proto_pairdoubling", f, seeds0, steps, sgn, spec, Wc, Ws,
+                 shat, out, B, N, P, K, S, int(contract_x), bf16)
+    _project_pair_group_doubling_cc.launches += 1
+    _raise_on(rc, "_project_pair_group_doubling_cc")
+    return out
+
+
+def _project_pair_group_notrig_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                                  contract_x: bool, cdt=torch.float32):
+    """The CUDA-core no-trig pair forward of ``csrc/radon_proto.cu`` (see
+    :func:`_project_pair_group_doubling_cc`). CPU tensors run
+    :func:`_project_pair_group_notrig`."""
+    if f.device.type == "cpu":
+        return _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
+                                          contract_x, cdt)
+    bf16, B, N, P, K, S, dev = _notrig_args(f, pos, sha, shb, sgn, spec, Wc, Ws, L, cdt)
+    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
+    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
+    rc = _launch("radon_proto_pairnotrig", f, pos, sha, shb, sgn, spec, Wc, Ws,
+                 shat, out, B, N, P, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
+    _project_pair_group_notrig_cc.launches += 1
+    _raise_on(rc, "_project_pair_group_notrig_cc")
+    return out
+
+
 def _packed_window(Np: int) -> int:
-    """Rows of T̂ one block of the packed tensor-core forward keeps in shared
-    memory (csrc/radon_proto_tc.cu, at most PT_DW_MAX = 256): the largest
+    """Rows of T̂ one block of a tensor-core probe forward keeps in shared
+    memory (csrc/radon_proto_tc.cu, radon_pair_proto_tc.cu; at most
+    PT_DW_MAX = 256): the largest
     multiple of 128 that divides Np (a multiple of 128) and is at most 256,
     so the depth runs in Np/window windows, each a partial of the sums."""
     return 256 if Np % 256 == 0 else 128
@@ -436,16 +531,15 @@ def _backproject_group_packed_cc(p, pos, shift, spec, Wc, Ws, L, contract_x: boo
     return out
 
 
-project_pair_group_doubling.launches = 0
-project_pair_group_notrig.launches = 0
-project_group_packed.launches = 0
-backproject_group_packed.launches = 0
-_project_group_packed_cc.launches = 0
-_backproject_group_packed_cc.launches = 0
+_LAUNCHERS = (project_pair_group_doubling, project_pair_group_notrig,
+              _project_pair_group_doubling_cc, _project_pair_group_notrig_cc,
+              project_group_packed, backproject_group_packed,
+              _project_group_packed_cc, _backproject_group_packed_cc)
 
 
 def reset_launch_counts():
-    for fn in (project_pair_group_doubling, project_pair_group_notrig,
-               project_group_packed, backproject_group_packed,
-               _project_group_packed_cc, _backproject_group_packed_cc):
+    for fn in _LAUNCHERS:
         fn.launches = 0
+
+
+reset_launch_counts()
