@@ -211,6 +211,22 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``train --devices 2 --angle-devices 2 --steps 3 --ckpt-dir``, a
      single-device ``infer --ckpt-dir`` of its checkpoint, and ``infer
      --devices 2`` equal to ``--devices 1`` (PSNR rtol 1e-5, SSIM 1e-4).
+ 21. the ``scripts/`` backends (``pdunet_tpu_torch/scripts/``) as a user runs
+     them, in a temporary root: ``acceleration_sweep`` on pdunet_parallel,
+     pdunet_fan and pdunet_radial at 4x (20 steps at full width, batch 4,
+     then each best checkpoint's infer on 64 slices), ``ood_eval`` on the
+     pdunet_parallel cell (shepp_logan, hu_volume; 8-slice stores),
+     ``ood_analysis`` in process over the three cells (indist, shepp_logan,
+     hu_volume): each anchor PSNR mean within 0.01 dB of the JAX package's
+     on the CPU (``scripts/ood_anchors_reference.json``, same slices) and
+     each anchor resid_rel within 1%, printed beside the TPU artifact;
+     ``classical_baselines`` in process at full width, its 9 rows within
+     1.0 dB of ``artifacts/classical_baselines.json`` (the draws differ),
+     with each row's per-slice spread; ``batch_frontier_ab`` (b4,
+     b32_base, 64 samples; beside the others, in a thread) and
+     ``results_tables``. Every child is a
+     ``python -m pdunet_tpu_torch.{train,infer}`` on the card and a failed
+     one raises; rows 1-4 must launch on both routes in each in-process run.
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
@@ -225,8 +241,9 @@ sino_unet_radial's path and their times on its dense plan, and all four
 their launches on the file-backed paths, rows 3-4 also on the gridding
 path, where they must not run; rows 1-4 also their launches in each rank of
 one sharded step per mesh, their sharded operators' per-rank times and
-their worst error against the plain version over the shards), then the
-card's name and power limit, then
+their worst error against the plain version over the shards, and their
+launches by route in phase 21's in-process script runs), then the card's
+name and power limit, then
 the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -3566,6 +3583,200 @@ def mesh_phases(dev, card, gen):
     return out
 
 
+# -- 21. the scripts/ backends ---------------------------------------------
+
+#: the geometries of phase 21 (the sweep's cells, ood_analysis's presets)
+SCRIPT_PRESETS = ("pdunet_parallel", "pdunet_fan", "pdunet_radial")
+#: slices per OOD store in phase 21 (one ood_analysis batch of 8)
+SCRIPT_OOD_SLICES = 8
+#: phase 21's bounds: each anchor PSNR mean against the JAX package's on the
+#: CPU (dB), its resid_rel (relative), and each classical row against the
+#: reference's artifact (dB; the draws differ)
+ANCHOR_DB, ANCHOR_RESID, CLASSICAL_DB = 0.01, 0.01, 1.0
+
+
+def scripts_phase(card):
+    """Phase 21: the ``scripts/`` backends as a user runs them, in a
+    temporary root (each script's ``ROOT`` / ``ART``): acceleration_sweep's
+    three cells (20 steps at full width, batch 4, and their infer),
+    ood_eval on pdunet_parallel (shepp_logan, hu_volume), ood_analysis in
+    process over the three cells, classical_baselines in process at full
+    width, batch_frontier_ab (b4, b32_base) and results_tables. Children
+    are ``python -m pdunet_tpu_torch.{train,infer}`` on the card; a failed
+    child raises. The anchors are held against the JAX package's on the CPU
+    (``scripts/ood_anchors_reference.json``), the classical rows against
+    ``artifacts/classical_baselines.json``; rows 1-4's launches are counted
+    in the two in-process runs."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pdunet_tpu_torch.ops.radon import cuda_kernels as ck
+    from pdunet_tpu_torch.scripts import (
+        acceleration_sweep,
+        batch_frontier_ab,
+        classical_baselines,
+        ood_analysis,
+        ood_eval,
+        results_tables,
+    )
+
+    torch.cuda.empty_cache()  # the children share the card with this process
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_scripts_"))
+    scripts = (acceleration_sweep, batch_frontier_ab, classical_baselines, ood_analysis,
+               ood_eval)
+    saved_roots, saved_art = {m: m.ROOT for m in scripts}, results_tables.ART
+    for m in scripts:
+        m.ROOT = tmp
+    results_tables.ART = tmp / "artifacts" / "torch"
+    art = tmp / "artifacts" / "torch"
+    out = {"launches": {}, "s": {}}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        out["s"][name] = time.perf_counter() - t0
+        print(f"[chip_smoke] phase 21 {name}: {out['s'][name]:.1f} s")
+
+    def counted(name, fn):
+        ck.reset_launch_counts()
+        timed(name, fn)
+        pair, group = _pair_route_counts(ck), _group_route_counts(ck)
+        counts = {}
+        for row in ROWS_1_4:
+            c = (pair if "pair" in row else group)[0 if row.startswith("project") else 2:]
+            counts[row] = {"tc": c[0], "split": c[1]}
+        out["launches"][name] = counts
+        print(f"[check] phase 21 {name} launches of rows 1-4 (bf16 tensor-core / split): "
+              f"{counts}")
+        check(all(c["tc"] > 0 and c["split"] > 0 for c in counts.values()),
+              f"{name}: a kernel of rows 1-4 did not launch on both routes: {counts}")
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    try:
+        # the A/B needs nothing of the others: it runs beside them, its
+        # children processes of their own (the in-process counts see none)
+        ab_done = pool.submit(timed, "batch_frontier_ab", lambda: batch_frontier_ab.main(
+            ["--arms", "b4,b32_base", "--samples", "64"]))
+        timed("acceleration_sweep", lambda: acceleration_sweep.main(
+            ["--presets", ",".join(SCRIPT_PRESETS), "--sparsities", "4", "--batch", "4",
+             "--samples", "80"]))
+        sweep = json.loads((art / "acceleration_sweep.json").read_text())["cells"]
+        for c in sweep:
+            print(f"[check] sweep cell {c['preset']}_s{c['sparsity']} ({c['steps']} steps, "
+                  f"batch {c['batch']}): PSNR {c['psnr_mean']:.3f} dB, SSIM "
+                  f"{c['ssim_mean']:.4f} over {c['n_slices']} slices, train "
+                  f"{c['train_wall_sec']} s ({card})")
+        check(sorted(c["preset"] for c in sweep) == sorted(SCRIPT_PRESETS)
+              and all(c["steps"] == 20 and c["n_slices"] == 64
+                      and math.isfinite(c["psnr_mean"]) and math.isfinite(c["ssim_mean"])
+                      for c in sweep), f"the sweep's cells: {sweep}")
+
+        timed("ood_eval", lambda: ood_eval.main(
+            ["--presets", "pdunet_parallel", "--kinds", "shepp_logan,hu_volume",
+             "--n-slices", str(SCRIPT_OOD_SLICES)]))
+        ood = json.loads((art / "ood_eval.json").read_text())["cells"]
+        print(f"[check] ood_eval cells: {[(c['kind'], round(c['psnr_mean'], 3)) for c in ood]}")
+        check(len(ood) == 2 and all(c["n_slices"] == SCRIPT_OOD_SLICES
+                                    and math.isfinite(c["psnr_mean"]) for c in ood),
+              f"the ood_eval cells: {ood}")
+
+        counted("ood_analysis", lambda: ood_analysis.main(
+            ["--presets", ",".join(SCRIPT_PRESETS), "--kinds", "indist,shepp_logan,hu_volume",
+             "--n-slices", str(SCRIPT_OOD_SLICES)]))
+        yard = json.loads((REPO / "pdunet_tpu_torch" / "scripts"
+                           / "ood_anchors_reference.json").read_text())["pairs"]
+        anchors = {}
+        for preset in SCRIPT_PRESETS:
+            for kind in ("indist", "shepp_logan", "hu_volume"):
+                path = art / "ood_analysis" / f"{preset}_{kind}.json"
+                if kind == "hu_volume" and preset == "pdunet_radial":
+                    check(not path.exists(), "ood_analysis scored an HU volume on MRI")
+                    continue
+                c = json.loads(path.read_text())
+                check(c["n_slices"] == SCRIPT_OOD_SLICES and math.isfinite(c["psnr_mean"])
+                      and len(c["worst_png"]) == 2, f"ood_analysis cell {c}")
+                print(f"[check] ood_analysis {preset}/{kind}: model {c['psnr_mean']:.3f} dB, "
+                      f"anchor {c['anchor_psnr_mean']:.3f} dB, resid model / anchor "
+                      f"{c.get('resid_rel_model')} / {c.get('resid_rel_anchor')}")
+                if kind == "indist":
+                    continue  # this run's draws: no yardstick
+                ref = yard[f"{preset}/{kind}"]
+                ref_db = float(np.mean(ref["anchor_psnr"][:SCRIPT_OOD_SLICES]))
+                tpu = json.loads((REPO / "artifacts" / "ood_analysis"
+                                  / f"{preset}_{kind}.json").read_text())
+                # the TPU artifact holds 32 slices: it is set beside the JAX
+                # package's mean over the same 32, which this run matches on
+                # its first slices
+                jax32 = float(np.mean(ref["anchor_psnr"]))
+                a = {"anchor_db": c["anchor_psnr_mean"], "jax_cpu_db": ref_db,
+                     "diff_db": c["anchor_psnr_mean"] - ref_db, "jax_cpu_db_32": jax32,
+                     "tpu_artifact_db_32": tpu["anchor_psnr_mean"],
+                     "tpu_minus_jax_cpu_db_32": tpu["anchor_psnr_mean"] - jax32}
+                if "resid_rel_anchor" in c:
+                    ref_r = float(np.mean(ref["resid_rel_anchor"][:SCRIPT_OOD_SLICES]))
+                    a.update(resid=c["resid_rel_anchor"], jax_cpu_resid=ref_r,
+                             resid_rel_diff=c["resid_rel_anchor"] / ref_r - 1.0,
+                             tpu_artifact_resid_32=tpu["resid_rel_anchor"])
+                anchors[f"{preset}/{kind}"] = a
+                print(f"[check] anchor {preset}/{kind} over {SCRIPT_OOD_SLICES} slices: "
+                      f"{a['anchor_db']:.3f} dB here, {ref_db:.4f} dB the JAX package on the "
+                      f"CPU (diff {a['diff_db']:+.4f}, bound {ANCHOR_DB}); resid_rel "
+                      f"{a.get('resid')} against {a.get('jax_cpu_resid')} (rel diff "
+                      f"{a.get('resid_rel_diff')}, bound {ANCHOR_RESID}); over all 32 slices "
+                      f"the TPU artifact {a['tpu_artifact_db_32']:.3f} dB against the JAX "
+                      f"package's {jax32:.4f} dB ({a['tpu_minus_jax_cpu_db_32']:+.4f} dB, no "
+                      f"bound) ({card})")
+                check(abs(a["diff_db"]) <= ANCHOR_DB,
+                      f"anchor {preset}/{kind} is {a['diff_db']:+.4f} dB off the JAX package's")
+                check("resid" not in a or abs(a["resid_rel_diff"]) <= ANCHOR_RESID,
+                      f"resid_rel_anchor {preset}/{kind} is {a.get('resid_rel_diff')} off")
+        out["anchors"] = anchors
+
+        counted("classical_baselines", lambda: classical_baselines.main([]))
+        ref_rows = {(c["preset"], c["sparsity"]): c for c in json.loads(
+            (REPO / "artifacts" / "classical_baselines.json").read_text())["cells"]}
+        rows = json.loads((art / "classical_baselines.json").read_text())["cells"]
+        check(len(rows) == 9, f"classical_baselines wrote {len(rows)} rows, not 9")
+        for c in rows:
+            r = ref_rows[(c["preset"], c["sparsity"])]
+            d = c["psnr_mean"] - r["psnr_mean"]
+            print(f"[check] classical {c['preset']} s{c['sparsity']} ({c['method']}): "
+                  f"{c['psnr_mean']:.3f} dB (per-slice std {c['psnr_std']:.3f}) / SSIM "
+                  f"{c['ssim_mean']:.4f} over {c['n_slices']} slices; the reference's "
+                  f"artifact {r['psnr_mean']:.3f} / {r['ssim_mean']:.4f} (diff {d:+.3f} dB, "
+                  f"bound {CLASSICAL_DB}) ({card})")
+            check(c["n_slices"] == 64 and abs(d) <= CLASSICAL_DB,
+                  f"classical row {c['preset']} s{c['sparsity']} is {d:+.3f} dB off")
+        out["classical"] = rows
+
+        ab_done.result()
+        ab = json.loads((art / "batch_ab.json").read_text())["arms"]
+        print(f"[check] batch_frontier_ab arms: {ab}")
+        check([a["tag"] for a in ab] == ["pdunet_parallel_b4", "pdunet_parallel_b32_base"]
+              and all(math.isfinite(a["psnr"]) for a in ab), f"the A/B arms: {ab}")
+        out["batch_ab"] = ab
+
+        timed("results_tables", lambda: results_tables.main([]))
+        sweep_md, ood_md = results_tables.sweep_table(), results_tables.ood_table()
+        sweep_row = next(r for r in sweep_md.splitlines() if r.startswith("| pdunet_parallel |"))
+        ood_row = next(r for r in ood_md.splitlines() if r.startswith("| pdunet_parallel |"))
+        ood_cells = [x.strip() for x in ood_row.split("|")[2:-1]]  # in-dist, then the kinds
+        check(sweep_row.split("|")[3].strip() != "—" and "*FBP (no learning)*" in sweep_md
+              and "—" not in (ood_cells[0], ood_cells[1], ood_cells[5]),
+              f"results_tables rendered: {sweep_row} / {ood_row}")
+        out["sweep"], out["ood_eval"] = sweep, ood
+    finally:
+        pool.shutdown(wait=True)
+        for m, root in saved_roots.items():
+            m.ROOT = root
+        results_tables.ART = saved_art
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def _mesh_sets():
     return [a for k, v in MESH_OVERRIDES.items() for a in ("--set", f"{k}={v}")]
 
@@ -4001,6 +4212,8 @@ def main():
     elapsed("phase 18 (gridding NUFFT)")
     mesh = mesh_phases(dev, card, gen)
     elapsed("phases 19-20 (angle-sharded operators, sharded training and serving)")
+    scripts = scripts_phase(card)
+    elapsed("phase 21 (scripts)")
     for e in entries + radial_entries:
         preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
                   "pdunet_parallel", "project_group": "pdunet_radial",
@@ -4070,6 +4283,9 @@ def main():
                                 if e["name"] in st["per_rank"][0]["launches"]}
             e["shard_plain_err"] = {k: v for k, v in mesh["shard_kernels"]["errs"].items()
                                     if k.startswith(e["name"] + "/")}
+            # phase 21: its launches by route in the in-process script runs
+            e["launches_scripts"] = {name: counts[e["name"]]
+                                     for name, counts in scripts["launches"].items()}
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -4085,7 +4301,7 @@ def main():
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
                       "slice_c": slice_c, "data_path": data_paths, "gridding": gridding,
-                      "mesh": mesh,
+                      "mesh": mesh, "scripts": scripts,
                       "build_s": build_s, "phase_s": phase_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

@@ -3,6 +3,7 @@ a second container for the same store).
 
 * :class:`SliceDataset`: a slice store with deterministic train/val/test
   splits;
+* :func:`write_store`: slices (and phase) written as a store;
 * :func:`write_phantom_dataset`: a reproducible random-ellipse store;
 * :func:`convert_volume`: a 3-D volume sliced into a store;
 * :func:`iterate_batches`: host batches, shuffled from a seed;
@@ -35,8 +36,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SliceDataset", "write_phantom_dataset", "convert_volume", "iterate_batches",
-           "h5_to_npy"]
+__all__ = ["SliceDataset", "write_store", "write_phantom_dataset", "convert_volume",
+           "iterate_batches", "h5_to_npy"]
 
 DOMAINS = ("density", "hu")
 SPLITS = ("train", "val", "test")
@@ -133,22 +134,53 @@ class SliceDataset:
     def domain(self) -> str:
         return self._domain
 
-    def __getitem__(self, idx: int) -> np.ndarray:
+    def _parts(self, idx: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         if not 0 <= idx < self._count:
             raise IndexError(idx)
         mag = np.asarray(self._slices[self._start + idx], np.float32)
         if self._domain == "hu":
             mag = 1.0 + mag / 1000.0  # HU → relative attenuation μ/μ_water
-        if self._phase is not None:
-            phase = np.asarray(self._phase[self._start + idx], np.float32)
+        if self._phase is None:
+            return mag, None
+        return mag, np.asarray(self._phase[self._start + idx], np.float32)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        mag, phase = self._parts(idx)
+        if phase is not None:
             return (mag * np.exp(1j * phase)).astype(np.complex64)
         return mag
 
     def batch(self, indices) -> np.ndarray:
         return np.stack([self[int(i)] for i in indices])
 
+    def parts(self, indices) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(magnitudes, phases or None) of ``indices``, stacked float32: the
+        magnitudes as ``batch`` reads them (relative attenuation for an HU
+        store), the phases as stored, no complex image formed."""
+        mags, phases = zip(*(self._parts(int(i)) for i in indices))
+        return np.stack(mags), (None if self._phase is None else np.stack(phases))
+
     def close(self):
         self._file.close()
+
+
+def write_store(path: str, slices: np.ndarray, phase: Optional[np.ndarray] = None,
+                splits: Optional[Tuple[int, int, int]] = None, domain: Optional[str] = None) -> str:
+    """Write (n, N, N) ``slices`` (and ``phase``) as a store, the container
+    by ``path``, with the (train, val, test) counts ``splits`` (default: all
+    test) and, when given, the ``domain`` attribute."""
+    splits = (0, 0, len(slices)) if splits is None else splits
+    if _is_hdf5(path):
+        with _h5py().File(path, "w") as f:
+            f.create_dataset("slices", data=slices)
+            if phase is not None:
+                f.create_dataset("phase", data=phase)
+            f.attrs["splits"] = splits
+            if domain is not None:
+                f.attrs["domain"] = domain
+    else:
+        _write_npy(path, slices, phase, splits, domain)
+    return path
 
 
 def write_phantom_dataset(path: str, n_slices: int, image_size: int,
@@ -176,16 +208,7 @@ def write_phantom_dataset(path: str, n_slices: int, image_size: int,
             X, Y = np.meshgrid(ax, ax)
             c = rng.uniform(-np.pi, np.pi, 4)
             phase[i] = c[0] * X + c[1] * Y + c[2] * X * Y + c[3] * (X ** 2 - Y ** 2)
-    counts = _split_counts(n_slices, splits[0], splits[1])
-    if _is_hdf5(path):
-        with _h5py().File(path, "w") as f:
-            f.create_dataset("slices", data=slices)
-            if phase is not None:
-                f.create_dataset("phase", data=phase)
-            f.attrs["splits"] = counts
-    else:
-        _write_npy(path, slices, phase, counts)
-    return path
+    return write_store(path, slices, phase, _split_counts(n_slices, splits[0], splits[1]))
 
 
 def convert_volume(volume: np.ndarray, out_path: str, axis: int = 0,
@@ -198,14 +221,7 @@ def convert_volume(volume: np.ndarray, out_path: str, axis: int = 0,
         raise ValueError(f"unknown slice domain {domain!r}")
     vol = np.moveaxis(np.asarray(volume, np.float32), axis, 0)
     counts = _split_counts(vol.shape[0], kw.get("train_frac", 0.8), kw.get("val_frac", 0.1))
-    if _is_hdf5(out_path):
-        with _h5py().File(out_path, "w") as f:
-            f.create_dataset("slices", data=vol)
-            f.attrs["splits"] = counts
-            f.attrs["domain"] = domain
-    else:
-        _write_npy(out_path, vol, None, counts, domain)
-    return out_path
+    return write_store(out_path, vol, None, counts, domain)
 
 
 def h5_to_npy(src: str, dst: str) -> str:
