@@ -24,6 +24,10 @@ applied ``n_iters`` times.
 keeping its activations (``torch.utils.checkpoint``; flax's ``nn.remat``):
 memory for time, with the same results. It wraps the call, not the
 modules, so parameter names (``state_dict`` keys) do not depend on it.
+
+Each iteration's dual and primal nets run inside the spans ``pd.dual`` and
+``pd.primal`` (``utils/trace.py``), with their concatenated input and
+residual add; under remat the backward's recomputation opens them again.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pdunet_tpu_torch.models.unet import Conv, UNet
+from pdunet_tpu_torch.utils.trace import span
 
 __all__ = ["PReLU", "ConvNet", "PDIteration", "UnrolledPrimalDual", "make_lpd", "make_pdunet"]
 
@@ -130,9 +135,11 @@ class UnrolledPrimalDual(nn.Module):
     def _iteration(self, it: PDIteration, f, h, g_ch):
         """One unroll step: the dual update, then the primal update."""
         Af = self._pack(self.A(self._unpack(f)))
-        h = h + it.dual(torch.cat([h, Af, g_ch], dim=1))
+        with span("pd.dual"):
+            h = h + it.dual(torch.cat([h, Af, g_ch], dim=1))
         Ath = self._pack(self.At(self._unpack(h)))
-        f = f + it.primal(torch.cat([f, Ath], dim=1))
+        with span("pd.primal"):
+            f = f + it.primal(torch.cat([f, Ath], dim=1))
         return f, h
 
     def forward(self, g: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,10 @@ another header, so an edited kernel or header is rebuilt). Build or load failure
 
 No ``--use_fast_math``: the kernels need precise ``sincosf`` on arguments
 of ~10³ rad to hold their float32 tolerance.
+
+``kernels_built`` counts the nvcc builds of this process, ``kernels_loaded``
+its libraries loaded (both registered with ``utils/trace.py``, whose root
+spans keep their change); a real load runs inside the span ``setup.kernels``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import shutil
 import subprocess
 import threading
 
+from pdunet_tpu_torch.utils import trace
+
 __all__ = ["SOURCES", "build", "build_all", "load_library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -35,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+kernels_built = kernels_loaded = 0
+trace.counter("kernels_built", lambda: kernels_built)
+trace.counter("kernels_loaded", lambda: kernels_loaded)
 
 
 def _nvcc() -> str:
@@ -87,6 +96,7 @@ def _start(name: str, defines: tuple = ()):
 
 
 def _finish(name, lib, proc, tmp) -> str:
+    global kernels_built
     if proc is None:
         return ""
     log, _ = proc.communicate()
@@ -94,6 +104,7 @@ def _finish(name, lib, proc, tmp) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
     os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
+    kernels_built += 1
     return log
 
 
@@ -112,8 +123,11 @@ def build(name: str, defines: tuple = ()) -> pathlib.Path:
 def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` (with the preprocessor ``defines``, a
     test-only build of its own) if needed and load it (once per process)."""
+    global kernels_loaded
     with _lock:
         key = (name, defines)
         if key not in _loaded:
-            _loaded[key] = ctypes.CDLL(str(build(name, defines)))
+            with trace.span("setup.kernels"):
+                _loaded[key] = ctypes.CDLL(str(build(name, defines)))
+            kernels_loaded += 1
         return _loaded[key]

@@ -38,7 +38,9 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``, its
 bf16 tensor-core launches in ``.launches_tc`` and its split-bf16 launches
 in ``.launches_split``; the CUDA-core functions (``_project_pair_cc``,
 ``_project_group_cc``, ...) count theirs, and the table builders their
-builds. A CPU call does not count.
+builds. A CPU call does not count. The wrappers' and the table builders'
+counters are registered with ``utils/trace.py``, whose root spans keep
+their change.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ import functools
 import math
 
 import torch
+
+from pdunet_tpu_torch.utils import trace
 
 __all__ = ["project_pair_group", "backproject_pair_group", "build_pair_tables",
            "build_pair_split_tables", "pair_adjoint_splits", "project_group", "backproject_group",
@@ -1015,4 +1019,15 @@ def reset_launch_counts():
         fn.launches_split = 0
 
 
+def _register_counters():
+    """Register the wrappers' and table builders' counters with ``utils/trace.py``."""
+    for fn in (project_pair_group, backproject_pair_group, build_pair_tables,
+               build_pair_split_tables, project_group, backproject_group, build_group_tables,
+               build_group_split_tables):
+        for attr in ("launches", "launches_tc", "launches_split"):
+            if hasattr(fn, attr):
+                trace.counter(f"{fn.__name__}.{attr}", functools.partial(getattr, fn, attr))
+
+
 reset_launch_counts()
+_register_counters()

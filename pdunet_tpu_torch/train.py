@@ -61,7 +61,9 @@ def parse_args(argv=None):
     p.add_argument("--metrics", default=None, help="JSONL metrics output path")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of steps 10-15 here")
+                   help="write a torch.profiler trace of steps 10-15 here, with the "
+                        "program's spans (train.step and its phases, pd.dual / "
+                        "pd.primal) as ranges beside the kernels")
     p.add_argument("--debug-nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly: fail at the op whose "
                         "backward makes a NaN (slow)")

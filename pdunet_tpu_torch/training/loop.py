@@ -55,6 +55,7 @@ package's clu writer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -80,7 +81,7 @@ from pdunet_tpu_torch.parallel.sharding import (
 )
 from pdunet_tpu_torch.training.checkpoint import CheckpointManager
 from pdunet_tpu_torch.training.tasks import Task, build_task
-from pdunet_tpu_torch.utils import watchdog
+from pdunet_tpu_torch.utils import trace, watchdog
 from pdunet_tpu_torch.utils.precision import exact_f32_conv
 
 __all__ = ["train", "TrainResult", "TrainState", "make_train_step", "make_eval_step",
@@ -181,18 +182,6 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     return norm
 
 
-def _mark(marks, name: str, device):
-    """Append (name, CUDA event or host time) to ``marks`` when it is a list."""
-    if marks is None:
-        return
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-    else:
-        marks.append((name, time.perf_counter()))
-
-
 def make_train_step(task: Task, from_images: bool = False, mesh=None):
     """The train step ``step(state, x, marks=None, generator=None) -> metrics``.
 
@@ -205,9 +194,17 @@ def make_train_step(task: Task, from_images: bool = False, mesh=None):
     The step updates ``state`` in place and returns ``{"loss",
     "grad_norm"}`` and the task's aux terms (sino_unet's ``sino_loss`` and
     ``img_loss``) as 0-d device tensors (the norm is taken before
-    clipping). ``marks``: a list that receives a CUDA event (host time on
-    the CPU) after each phase: synthesis, forward (with the loss),
-    backward (with the gradient all-reduce), optimizer.
+    clipping).
+
+    The step runs inside the span ``train.step`` (``utils/trace.py``), its
+    phases inside ``train.synthesis``, ``train.forward`` (with the loss),
+    ``train.backward`` (with the gradient all-reduce) and
+    ``train.optimizer``. ``marks``: a list that receives the boundaries of
+    those spans as ``(name, CUDA event)`` (host seconds on the CPU): the
+    step's start, then the end of each phase, for :func:`split_ms`. The
+    spans record their events for it when no recording is active; on a
+    card, under a recording that records no event on the step's device (or
+    while the stream is captured), the step raises.
 
     ``mesh``: the step of one rank of a data-parallel mesh (the JAX
     package's ``make_sharded_train_step``): it keeps its data shard's rows
@@ -218,28 +215,37 @@ def make_train_step(task: Task, from_images: bool = False, mesh=None):
     synth = task.batch_from_images if from_images else task.make_batch
 
     def step(state: TrainState, x, marks=None, generator=None) -> dict:
-        _mark(marks, "start", device)
-        with torch.no_grad():
-            batch = synth(x, generator) if from_images else synth(x)
+        own = marks is not None and trace.active() is None
+        with (trace.recording(device, anchor=False) if own else contextlib.nullcontext()), \
+                trace.span("train.step") as whole:
+            with trace.span("train.synthesis") as synthesis, torch.no_grad():
+                batch = synth(x, generator) if from_images else synth(x)
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh)
+            with trace.span("train.forward") as forward:
+                loss, aux = task.loss_fn(state.model, batch)
+            with trace.span("train.backward") as backward:
+                state.optimizer.zero_grad(set_to_none=True)
+                # cuDNN's TF32 default would reach the f32 convolutions'
+                # backward, which runs outside the forward's per-layer pins
+                with exact_f32_conv(f32_convs):
+                    loss.backward()
+                if mesh is not None:
+                    all_reduce_grads(state.model.parameters(), mesh)
+            with trace.span("train.optimizer") as optimizer:
+                norm = apply_gradients(state)
+            # aux: the task's loss terms (sino_unet's sino_loss / img_loss)
+            metrics = {"loss": loss.detach(), "grad_norm": norm,
+                       **{k: v.detach() for k, v in aux.items()}}
             if mesh is not None:
-                batch = shard_batch(batch, mesh)
-        _mark(marks, "synthesis", device)
-        loss, aux = task.loss_fn(state.model, batch)
-        _mark(marks, "forward", device)
-        state.optimizer.zero_grad(set_to_none=True)
-        # cuDNN's TF32 default would reach the f32 convolutions' backward,
-        # which runs outside the forward's per-layer pins
-        with exact_f32_conv(f32_convs):
-            loss.backward()
-        if mesh is not None:
-            all_reduce_grads(state.model.parameters(), mesh)
-        _mark(marks, "backward", device)
-        norm = apply_gradients(state)
-        _mark(marks, "optimizer", device)
-        # aux: the task's loss terms (sino_unet's sino_loss / img_loss)
-        metrics = {"loss": loss.detach(), "grad_norm": norm,
-                   **{k: v.detach() for k, v in aux.items()}}
-        return metrics if mesh is None else mean_over(metrics, mesh)
+                metrics = mean_over(metrics, mesh)
+        if marks is not None:
+            cuda = device.type == "cuda"
+            marks.append(("start", whole.mark(False, cuda)))
+            marks += [(name, s.mark(True, cuda)) for name, s in (
+                ("synthesis", synthesis), ("forward", forward), ("backward", backward),
+                ("optimizer", optimizer))]
+        return metrics
 
     return step
 
@@ -356,7 +362,8 @@ def train(config: ExperimentConfig, steps: Optional[int] = None, fixed_data: boo
     ``max_checkpoints``), resumes from the latest checkpoint there, and
     keeps the best validation PSNR's weights in ``best/`` with
     ``best.json``. ``profile_dir``: a ``torch.profiler`` trace of steps 10-15 (counted
-    from the start or resume step) as ``trace.json`` there.
+    from the start or resume step) as ``trace.json`` there, the program's
+    spans (``utils/trace.py``) among its ranges.
 
     ``n_devices`` / ``angle_devices``: above 1, this call is one rank of a
     (data = n_devices, angle = angle_devices) mesh over the initialised

@@ -34,6 +34,11 @@ the phantoms and then the noise from its generator;
 ``batch_from_images(images, generator=None)`` is noiseless unless given a
 generator (the JAX package's ``key=None``).
 
+Spans (``utils/trace.py``): every task's ``batch_from_images`` runs inside
+``synthesis`` and its ``recon_fn`` inside ``recon``; ``build_task`` opens
+``setup.plans`` around each operator's construction and ``setup.opnorm``
+around σ's power iteration.
+
 Measurement synthesis, direct recons and the sino tasks' output operators
 run in float32 even when the networks run in bfloat16: the simulated
 measurement plays the role of physics, and synthesising it in bf16 would
@@ -68,6 +73,7 @@ from pdunet_tpu_torch.ops.losses import LOSSES
 from pdunet_tpu_torch.ops.nufft import make_radial_ops
 from pdunet_tpu_torch.ops.radon.fan import make_fan_ops
 from pdunet_tpu_torch.ops.radon.parallel import make_parallel_ops
+from pdunet_tpu_torch.utils.trace import span, traced
 
 __all__ = ["Task", "build_task", "build_geometries", "estimate_opnorm"]
 
@@ -221,8 +227,9 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None, mesh=Non
     make_local_ops = {"radial": make_radial_ops, "fan": make_fan_ops}.get(gc.kind,
                                                                           make_parallel_ops)
 
-    def make_ops(geom, **kw):
-        return make_local_ops(geom, mesh=mesh, **kw)
+    def make_ops(geom, mesh=mesh, **kw):
+        with span("setup.plans"):
+            return make_local_ops(geom, mesh=mesh, **kw)
 
     dtype = torch.bfloat16 if mc.use_bfloat16 else torch.float32
     N = gc.image_size
@@ -242,8 +249,9 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None, mesh=Non
             model.load_state_dict(new_model(generator).state_dict())
             return model
 
-        return Task(config.name, model, init_params, make_batch, loss_fn, recon_fn, config,
-                    N, batch_from_images, sigma)
+        return Task(config.name, model, init_params, make_batch, loss_fn,
+                    traced("recon", recon_fn), config, N,
+                    traced("synthesis", batch_from_images), sigma)
 
     if mc.kind in ("fbp_unet", "sino_unet"):
         channels = 2 if is_complex else 1  # radial: (Re, Im) in and out
@@ -321,10 +329,11 @@ def build_task(config: ExperimentConfig, device="cuda", opnorm_x0=None, mesh=Non
     ops_synth = (ops_sparse if dtype == torch.float32
                  else make_ops(sparse_geom, dtype=torch.float32, device=device))
     # the power iteration runs on one image: on the unsharded twin when sharded
-    ops_sigma = (ops_sparse if mesh is None
-                 else make_local_ops(sparse_geom, dtype=dtype, device=device))
-    sigma = estimate_opnorm(ops_sigma.A, ops_sigma.At, (N, N), x0=opnorm_x0,
-                            device=device, is_complex=is_complex)
+    ops_sigma = ops_sparse if mesh is None else make_ops(sparse_geom, dtype=dtype,
+                                                          device=device, mesh=None)
+    with span("setup.opnorm"):
+        sigma = estimate_opnorm(ops_sigma.A, ops_sigma.At, (N, N), x0=opnorm_x0,
+                                device=device, is_complex=is_complex)
     A_n = lambda f: ops_sparse.A(f) / sigma
     At_n = lambda p: ops_sparse.At(p) / sigma
 
