@@ -227,6 +227,12 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``results_tables``. Every child is a
      ``python -m pdunet_tpu_torch.{train,infer}`` on the card and a failed
      one raises; rows 1-4 must launch on both routes in each in-process run.
+ 22. cuDNN's NCHW <-> NHWC conversion kernels (nchwToNhwc, nhwcToNchw) per
+     bf16 recon of pdunet_parallel and pdunet_radial at batch 8, from
+     torch.profiler, beside the convolution kernels: the UNets run
+     channels_last, so there must be none; where any remain, the
+     convolution each surrounds (the op that launched it, its input
+     shapes) is printed before the check fails.
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
@@ -3777,6 +3783,67 @@ def scripts_phase(card):
     return out
 
 
+#: cuDNN's layout conversion kernels: they run around a convolution whose
+#: operands are not in the layout of the kernel cuDNN picked
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
+def layout_phase(dev, card, batch=8):
+    """Phase 22: cuDNN's NCHW <-> NHWC conversion kernels per bf16 recon of
+    pdunet_parallel and pdunet_radial at batch ``batch`` (torch.profiler over
+    one recon after a warm one), beside the convolution kernels. The UNets
+    run channels_last, so none may remain: where any do, the op that
+    launched each (the convolution they surround) and its input shapes are
+    printed, then the check fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdunet_tpu_torch.configs import get_preset
+    from pdunet_tpu_torch.training.tasks import build_task
+
+    def layout(name):
+        return any(k.lower() in name.lower() for k in LAYOUT_KERNELS)
+
+    out = {}
+    for name in ("pdunet_parallel", "pdunet_radial"):
+        config = get_preset(name).override({"train.batch_size": batch})
+        task = build_task(config, device=dev)
+        task.init_params(torch.Generator().manual_seed(0))
+        task.model.eval()
+        with torch.inference_mode():
+            b = task.make_batch(torch.Generator(device=dev).manual_seed(22))
+            task.recon_fn(task.model, b)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                task.recon_fn(task.model, b)
+                torch.cuda.synchronize()
+        events = prof.events()
+        kernels = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_layout = sum(layout(k) for k in kernels)
+        n_conv = sum(("fprop" in k or "dgrad" in k or "conv" in k.lower()) and not layout(k)
+                     for k in kernels)
+        print(f"[chip_smoke] {name} bf16 recon at batch {batch}: {n_layout} cuDNN layout "
+              f"conversion kernels ({', '.join(LAYOUT_KERNELS)}) beside {n_conv} convolution "
+              f"kernels, of {len(kernels)} kernels ({card})")
+        around = {}
+        for e in events:
+            for k in e.kernels:
+                if layout(k.name):
+                    key = f"{e.name} {e.input_shapes}"
+                    around[key] = around.get(key, 0) + 1
+        for key, n in sorted(around.items(), key=lambda kv: -kv[1]):
+            print(f"[chip_smoke]   {n} x around {key}")
+        out[name] = {"batch": batch, "layout_kernels": n_layout, "conv_kernels": n_conv,
+                     "kernels": len(kernels), "around": around}
+        del task
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        check(r["layout_kernels"] == 0,
+              f"{name}: {r['layout_kernels']} cuDNN layout conversions per recon; "
+              f"around {sorted(r['around'])}")
+    return out
+
+
 def _mesh_sets():
     return [a for k, v in MESH_OVERRIDES.items() for a in ("--set", f"{k}={v}")]
 
@@ -4214,6 +4281,8 @@ def main():
     elapsed("phases 19-20 (angle-sharded operators, sharded training and serving)")
     scripts = scripts_phase(card)
     elapsed("phase 21 (scripts)")
+    layouts = layout_phase(dev, card)
+    elapsed("phase 22 (cuDNN layout conversions per recon)")
     for e in entries + radial_entries:
         preset = {"project_pair_group": "pdunet_parallel", "backproject_pair_group":
                   "pdunet_parallel", "project_group": "pdunet_radial",
@@ -4301,7 +4370,7 @@ def main():
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
                       "slice_c": slice_c, "data_path": data_paths, "gridding": gridding,
-                      "mesh": mesh, "scripts": scripts,
+                      "mesh": mesh, "scripts": scripts, "layout_conversions": layouts,
                       "build_s": build_s, "phase_s": phase_s, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device}))

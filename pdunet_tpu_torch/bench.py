@@ -301,17 +301,24 @@ def bench_unet_scan(batch: int = 128, image_size: int = 256, base_features: int 
       (encoder and decoder ConvBlocks per level, the bottleneck, both
       upsample ops, the 1x1 head).
 
-    Shapes are NCHW ``[batch, channels, h, w]``."""
-    from pdunet_tpu_torch.models.unet import Conv, ConvBlock, ConvTranspose, UNet, _d2s_nchw
+    Shapes are NCHW ``[batch, channels, h, w]``; the parts' inputs and
+    weights lie channels_last, as inside the UNet."""
+    from pdunet_tpu_torch.models.unet import (
+        Conv,
+        ConvBlock,
+        ConvTranspose,
+        UNet,
+        _d2s_channels_last,
+    )
 
     device = torch.device(device)
     bf16 = torch.bfloat16
     kw = dict(dtype=bf16, device="cpu")
 
-    def t_module(module, shape, dtype=bf16):
+    def t_module(module, shape, dtype=bf16, memory_format=torch.contiguous_format):
         torch.manual_seed(0)  # the weights of modules built without a generator
         module = module.to(device)
-        x = torch.ones(shape, dtype=dtype, device=device)
+        x = torch.ones(shape, dtype=dtype, device=device).to(memory_format=memory_format)
         return timeit(module, x)
 
     class Shuffle(torch.nn.Module):
@@ -320,10 +327,10 @@ def bench_unet_scan(batch: int = 128, image_size: int = 256, base_features: int 
             self.conv = Conv(cin, 4 * features, 1, **kw)
 
         def forward(self, x):
-            return _d2s_nchw(self.conv(x), 2)
+            return _d2s_channels_last(self.conv(x), 2)
 
     out = {"batch": batch, "image_size": image_size, "base_features": base_features,
-           "depth": depth, "layout": "NCHW", "device": device_kind(device),
+           "depth": depth, "layout": "NHWC", "device": device_kind(device),
            "variants": [], "parts": []}
     for stem in (1, 2):
         for up in ("convtranspose", "shuffle"):
@@ -340,7 +347,8 @@ def bench_unet_scan(batch: int = 128, image_size: int = 256, base_features: int 
     n0 = image_size // stem
 
     def part(name, module, shape, **extra):
-        dt = t_module(module, shape)
+        cl = torch.channels_last
+        dt = t_module(module.to(memory_format=cl), shape, memory_format=cl)
         out["parts"].append({"part": name, "shape": list(shape), **extra,
                              "ms_per_batch": round(dt * 1e3, 3)})
 

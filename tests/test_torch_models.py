@@ -9,11 +9,15 @@ the pair operator in the port and in the per-angle operator in JAX's CPU
 path (the projector's own bf16 tolerance is 5e-3).
 """
 
+import io
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pdunet_tpu.geometry import ParallelGeometry as JaxGeometry
 from pdunet_tpu.models.primal_dual import make_pdunet as jax_make_pdunet
@@ -23,8 +27,8 @@ from pdunet_tpu.models.unet import space_to_depth as jax_s2d
 from pdunet_tpu.ops.radon.parallel import make_parallel_ops as jax_ops
 from pdunet_tpu_torch.geometry import ParallelGeometry
 from pdunet_tpu_torch.models.convert import flax_to_torch, load_flax_unet
-from pdunet_tpu_torch.models.primal_dual import make_pdunet
-from pdunet_tpu_torch.models.unet import UNet, depth_to_space, space_to_depth
+from pdunet_tpu_torch.models.primal_dual import ConvNet, make_pdunet
+from pdunet_tpu_torch.models.unet import Conv, ConvTranspose, UNet, depth_to_space, space_to_depth
 from pdunet_tpu_torch.ops.radon.parallel import make_parallel_ops
 
 torch.set_num_threads(1)
@@ -132,3 +136,198 @@ def test_pdunet_is_differentiable_through_the_operators():
     tm(g, f0).square().sum().backward()
     assert f0.grad is not None and torch.isfinite(f0.grad).all()
     assert all(p.grad is not None for p in tm.parameters())
+
+
+# -- the UNet's layout: channels_last inside, NCHW at its boundary ----------------
+
+def _s2d_nchw(x, s):
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, s * s * c, h // s, w // s)
+
+
+def _d2s_nchw(x, s):
+    b, c, h, w = x.shape
+    x = x.reshape(b, s, s, c // (s * s), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c // (s * s), h * s, w * s)
+
+
+def _nchw_forward(m, x):
+    """``UNet.forward`` as it ran before its layers went channels_last: pad,
+    cast, space-to-depth, then the same modules on contiguous NCHW tensors."""
+    h, w = x.shape[-2:]
+    mult = m.stem << m.depth
+    x = F.pad(x, (0, (-w) % mult, 0, (-h) % mult)).to(m.dtype)
+    if m.stem > 1:
+        x = _s2d_nchw(x, m.stem)
+    skips = []
+    for d in range(m.depth):
+        x = m.blocks[d](x)
+        skips.append(x)
+        x = F.max_pool2d(x, 2, 2)
+    x = m.blocks[m.depth](x)
+    for i, d in enumerate(reversed(range(m.depth))):
+        x = m.ups[i](x)
+        if m.upsample == "shuffle":
+            x = _d2s_nchw(x, 2)
+        x = m.blocks[m.depth + 1 + i](torch.cat([x, skips[d]], dim=1))
+    x = m.head(x)
+    if m.stem > 1:
+        x = _d2s_nchw(x, m.stem)
+    return x.float()[..., :h, :w]
+
+
+def _channels_last(t):
+    """Channels_last and not also NCHW-contiguous (no dim of size 1 makes
+    the two layouts one)."""
+    return t.is_contiguous(memory_format=torch.channels_last) and not t.is_contiguous()
+
+
+def _nchw(t):
+    return t.is_contiguous() and not t.is_contiguous(memory_format=torch.channels_last)
+
+
+def _record_convs(model):
+    """Forward hooks on every Conv / ConvTranspose of ``model``: a list that
+    fills with (input, output) per call, and the hooks' handles."""
+    seen = []
+    handles = [mod.register_forward_hook(lambda mod, args, out: seen.append((args[0], out)))
+               for mod in model.modules() if isinstance(mod, (Conv, ConvTranspose))]
+    return seen, handles
+
+
+@pytest.mark.parametrize("stem,depth,upsample", [(1, 2, "convtranspose"), (2, 2, "convtranspose"),
+                                                 (2, 1, "shuffle"), (1, 3, "shuffle")])
+@pytest.mark.parametrize("bf16,tol", _DT, ids=["f32", "bf16"])
+def test_unet_layers_run_channels_last(stem, depth, upsample, bf16, tol):
+    """Every convolution of the UNet takes and gives channels_last tensors in
+    the compute dtype (so cuDNN's NHWC kernels need no conversion), while the
+    UNet takes and returns NCHW float32 as before: the same shape, dtype,
+    contiguity and values as the NCHW forward of the same modules, whose
+    convolutions stay NCHW."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    m = UNet(in_channels=3, out_channels=2, base_features=4, depth=depth, stem=stem,
+             dtype=dtype, upsample=upsample, generator=torch.Generator().manual_seed(4),
+             device="cpu")
+    for p in m.parameters():  # biases away from their zero init, so a wrong one shows
+        if p.dim() == 1:
+            p.data.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(p.numel()))
+    x = torch.randn(3, 3, 32, 32, generator=torch.Generator().manual_seed(5))
+    seen, handles = _record_convs(m)
+    with torch.no_grad():
+        out = m(x)
+        n_convs = len(seen)
+        ref = _nchw_forward(m, x)
+    for h in handles:
+        h.remove()
+    assert n_convs == 2 * (2 * depth + 1) + depth + 1
+    for t_in, t_out in seen[:n_convs]:
+        assert _channels_last(t_in) and _channels_last(t_out)
+        assert t_in.dtype == t_out.dtype == dtype
+    assert all(_nchw(t_in) and _nchw(t_out) for t_in, t_out in seen[n_convs:])
+    assert out.shape == ref.shape == (3, 2, 32, 32)
+    assert out.dtype == ref.dtype == torch.float32
+    assert out.is_contiguous() and ref.is_contiguous()
+    assert rel(out, ref) < tol
+
+
+class _ActivationCopies(TorchDispatchMode):
+    """The copies (``copy_``, ``clone``, ``_to_copy``, padding) of tensors
+    whose leading dim is ``batch`` (activations, not weights) that ``model``
+    makes outside its Conv / ConvTranspose calls (on the CPU those compute
+    in NCHW and convert inside; on the card they convert nothing)."""
+
+    OPS = ("aten.copy_", "aten.clone", "aten._to_copy", "aten.constant_pad_nd")
+
+    def __init__(self, model, batch):
+        super().__init__()
+        self.batch, self.ops, self.depth = batch, [], 0
+        self.handles = []
+        for mod in model.modules():
+            if isinstance(mod, (Conv, ConvTranspose)):
+                self.handles += [mod.register_forward_pre_hook(lambda *a: self._step(1)),
+                                 mod.register_forward_hook(lambda *a: self._step(-1))]
+
+    def _step(self, d):
+        self.depth += d
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        t = args[0] if args else None
+        if name in self.OPS and not self.depth and isinstance(t, torch.Tensor) \
+                and t.dim() >= 4 and t.shape[0] == self.batch:
+            self.ops.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("size,entry", [((32, 32), 1), ((22, 37), 2)], ids=["fits", "padded"])
+@pytest.mark.parametrize("upsample", ["convtranspose", "shuffle"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_unet_copies_activations_only_at_its_ends(size, entry, upsample, bf16):
+    """Per UNet the layout work left is the entry (pad, cast and
+    space-to-depth in one copy, two when the input needs padding) and the
+    exit (depth-to-space, float32 and crop in one copy), plus the shuffle
+    upsample's own depth-to-space, one copy a level: no pooling,
+    concatenation or cast between the layers copies an activation."""
+    depth = 2
+    m = UNet(in_channels=3, out_channels=2, base_features=4, depth=depth, stem=2,
+             dtype=torch.bfloat16 if bf16 else torch.float32, upsample=upsample,
+             device="cpu")
+    x = torch.randn(3, 3, *size)
+    copies = _ActivationCopies(m, batch=3)
+    with torch.no_grad(), copies:
+        m(x)
+    for h in copies.handles:
+        h.remove()
+    shuffles = depth if upsample == "shuffle" else 0
+    assert len(copies.ops) == entry + shuffles + 1, copies.ops
+
+
+@pytest.mark.parametrize("bf16,tol", _DT, ids=["f32", "bf16"])
+def test_unet_loads_an_nchw_state_dict(bf16, tol):
+    """A state_dict saved by the NCHW UNet (contiguous tensors, lecun-drawn
+    from a seed as it drew them, biases set) loads into the channels_last
+    UNet: keys, shapes and values as saved, and the output of the NCHW
+    forward. A state_dict the new UNet saves has the same keys, shapes and
+    values."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(in_channels=3, out_channels=2, base_features=8, depth=2, stem=2, dtype=dtype,
+              device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    saved = {k: (v.contiguous() if v.dim() > 1 else torch.randn(v.shape, generator=gen) * 0.1)
+             for k, v in UNet(generator=torch.Generator().manual_seed(7), **kw)
+             .state_dict().items()}
+    assert all(v.is_contiguous() for v in saved.values())
+    buf = io.BytesIO()
+    torch.save(saved, buf)
+    buf.seek(0)
+    m = UNet(generator=torch.Generator().manual_seed(8), **kw)
+    m.load_state_dict(torch.load(buf, weights_only=True))
+    assert all(_channels_last(p) for p in m.parameters() if p.dim() == 4
+               and p.shape[-1] > 1)
+    state = m.state_dict()
+    assert list(state) == list(saved)
+    for k, v in saved.items():
+        assert state[k].shape == v.shape and torch.equal(state[k], v)
+    x = torch.randn(2, 3, 32, 32, generator=gen)
+    with torch.no_grad():
+        out = m(x)
+        ref = _nchw_forward(m, x)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.float32
+    assert rel(out, ref) < tol
+
+
+def test_convnet_keeps_nchw():
+    """LPD's ConvNet shares Conv: it still gives every convolution NCHW
+    contiguous inputs and gets NCHW contiguous outputs, since Conv follows
+    its input's layout."""
+    net = ConvNet(7, 5, features=32, dtype=torch.bfloat16, device="cpu")
+    seen, handles = _record_convs(net)
+    with torch.no_grad():
+        out = net(torch.randn(2, 7, 19, 26))
+    for h in handles:
+        h.remove()
+    assert len(seen) == 3
+    assert all(_nchw(t_in) and _nchw(t_out) for t_in, t_out in seen)
+    assert all(p.is_contiguous() for p in net.parameters())
+    assert _nchw(out) and out.dtype == torch.float32
