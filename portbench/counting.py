@@ -1,7 +1,10 @@
 """Operation and byte counts of a configuration, from the configuration alone.
 
 The frozen results live in ``counts/<config>.json`` (``python
-portbench/counting.py`` writes them; a test holds the files to this code).
+portbench/counting.py configs/<config>.json`` writes them; a test holds the
+files to this code): a new configuration is its file and that one. A new
+cell adds no count: it is its ``BENCHMARK.json`` entry,
+``limits/<cell>.json`` and ``tests/cells/<cell>.json``.
 Peaks: one H100 SXM's dense bf16 tensor-core rate, 989 TFLOP/s, and its HBM3
 bandwidth, 3.35 TB/s (NVIDIA's data sheet). Every count divides by them,
 whatever precision or splitting computes the work, so no implementation can
@@ -14,9 +17,15 @@ plan pairs, else an angle), stages 2-3 per emitted row:
 the group's rows written once per image, the plan rows and the inverse-DFT
 matrices once per call.
 
-Convolutions: ``FlopCounterMode`` over the reference network on the meta
-device, with the operators replaced by shape stubs that count nothing:
-the forward for a reconstruction, forward and backward for a training step.
+The network: ``FlopCounterMode`` over the reference network of the
+configuration's model kind (``reference/models/<kind>.py``: its ``shapes``
+and its ``unroll``) on the meta device, the forward for a reconstruction,
+forward and backward for a training step. The operators are shape stubs
+that count their calls: applies per slice are the synthesis A and the
+direct reconstruction, then each call of A or A† in the unroll and, in
+training, each call's vector-Jacobian product (none where the operator's
+input needs no gradient, as A f₀ in the first iteration). A new model
+kind is that one file; nothing here names a model.
 """
 
 from __future__ import annotations
@@ -27,13 +36,13 @@ import pathlib
 import sys
 
 import numpy as np
+import torch
 
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 HERE = pathlib.Path(__file__).resolve().parent
 
-__all__ = ["PEAK_FLOPS", "PEAK_BYTES", "projector_groups", "unet_shapes", "pdunet_shapes",
-           "conv_flops", "counts"]
+__all__ = ["PEAK_FLOPS", "PEAK_BYTES", "projector_groups", "network_counts", "counts"]
 
 
 def _pair_units(prim: np.ndarray) -> int:
@@ -96,43 +105,6 @@ def _group_counts(pg: dict) -> list:
     return out
 
 
-def unet_shapes(prefix: str, cin: int, cout: int, base: int, depth: int, stem: int) -> dict:
-    """Parameter shapes of one UNet, keyed as the program's state_dict."""
-    feats = [min(base * stem * (1 << d), 512) for d in range(depth + 1)]
-    shapes, c = {}, cin * stem * stem
-
-    def block(n, cin_, f):
-        shapes[f"{prefix}blocks.{n}.convs.0.weight"] = (f, cin_, 3, 3)
-        shapes[f"{prefix}blocks.{n}.convs.0.bias"] = (f,)
-        shapes[f"{prefix}blocks.{n}.convs.1.weight"] = (f, f, 3, 3)
-        shapes[f"{prefix}blocks.{n}.convs.1.bias"] = (f,)
-
-    for d in range(depth):
-        block(d, c, feats[d])
-        c = feats[d]
-    block(depth, c, feats[depth])
-    c = feats[depth]
-    for i, d in enumerate(reversed(range(depth))):
-        shapes[f"{prefix}ups.{i}.weight"] = (c, feats[d], 2, 2)
-        shapes[f"{prefix}ups.{i}.bias"] = (feats[d],)
-        block(depth + 1 + i, 2 * feats[d], feats[d])
-        c = feats[d]
-    shapes[f"{prefix}head.weight"] = (cout * stem * stem, c, 1, 1)
-    shapes[f"{prefix}head.bias"] = (cout * stem * stem,)
-    return shapes
-
-
-def pdunet_shapes(cfg: dict) -> dict:
-    m = cfg["model"]
-    step = 2 if cfg["geometry"]["kind"] == "radial" else 1
-    shapes = {}
-    for i in range(m["n_iters"]):
-        for part, cin in (("dual", 3 * step), ("primal", 2 * step)):
-            shapes.update(unet_shapes(f"iterations.{i}.{part}.", cin, step, m["base_features"],
-                                      m["depth"], m["stem"]))
-    return shapes
-
-
 def _sino_shape(cfg: dict) -> tuple:
     g = cfg["geometry"]
     N = g["image_size"]
@@ -141,44 +113,60 @@ def _sino_shape(cfg: dict) -> tuple:
     return len(range(0, g["n_angles"], g["sparsity"])), g["det_count"] or N
 
 
-def conv_flops(cfg: dict, train: bool) -> int:
-    """Convolution FLOPs of one slice through the unroll (and its backward)."""
-    import torch
+class _Stub(torch.autograd.Function):
+    """An operator's shape stub: (B, …) → zeros (B, rows, cols), counting
+    its forward calls and its backward calls in ``calls``."""
+
+    @staticmethod
+    def forward(ctx, x, rows, cols, calls):
+        calls["forward"] += 1
+        ctx.shape, ctx.dtype, ctx.calls = x.shape, x.dtype, calls
+        return x.new_zeros((x.shape[0], rows, cols))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.calls["backward"] += 1
+        return grad.new_zeros(ctx.shape, dtype=ctx.dtype), None, None, None
+
+
+def network_counts(cfg: dict, train: bool, root: pathlib.Path = HERE.parent) -> dict:
+    """{"conv_flops", "forward", "backward"} of one slice through the
+    unroll of ``cfg``'s model kind (and its backward): its FLOPs and the
+    stubbed operators' forward and backward calls."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from portbench.reference.model import pdunet
+    from portbench import modules
+    from portbench.reference.precision import EXACT
 
     g, m = cfg["geometry"], cfg["model"]
+    model = modules.reference_model(m["kind"], root)
     N, cplx = g["image_size"], g["kind"] == "radial"
     A, S = _sino_shape(cfg)
     dt = torch.complex64 if cplx else torch.float32
     P = {k: torch.zeros(s, device="meta", requires_grad=train)
-         for k, s in pdunet_shapes(cfg).items()}
-
-    def stub(rows, cols):
-        def op(x):
-            return torch.zeros((x.shape[0], rows, cols), dtype=x.dtype, device="meta") \
-                + x[:, :1, :1] * 0
-        return op
-
+         for k, s in model.shapes(cfg).items()}
+    calls = {"forward": 0, "backward": 0}
     g_in = torch.zeros((1, A, S), dtype=dt, device="meta")
     f0 = torch.zeros((1, N, N), dtype=dt, device="meta")
     with FlopCounterMode(display=False) as counter:
-        out = pdunet(g_in, f0, P, stub(A, S), stub(N, N), m["n_iters"], m["depth"], m["stem"],
-                     cplx)
+        out = model.unroll(m, P, g_in, f0, lambda f: _Stub.apply(f, A, S, calls),
+                           lambda p: _Stub.apply(p, N, N, calls), cplx, EXACT.lo)
         if train:
             (out.abs().mean()).backward()
-    return int(counter.get_total_flops())
+    return {"conv_flops": int(counter.get_total_flops()), **calls}
 
 
-def counts(cfg: dict) -> dict:
+def counts(cfg: dict, root: pathlib.Path = HERE.parent) -> dict:
+    """The counts of ``cfg``; ``root`` is the checkout whose reference
+    models count the network."""
     pg = projector_groups(cfg)
     groups = _group_counts(pg)
     images = 2 if cfg["geometry"]["kind"] == "radial" else 1
-    n = cfg["model"]["n_iters"]
-    applies = {"recon": 2 + 2 * n, "train": 2 + 2 * n + (2 * n - 1)}
+    net = {k: network_counts(cfg, k == "train", root) for k in ("recon", "train")}
+    # the synthesis A and the direct reconstruction, then the unroll's calls
+    applies = {k: 2 + c["forward"] + c["backward"] for k, c in net.items()}
     apply_flops = sum(gr["flops_per_image"] for gr in groups) * images
-    conv = {k: conv_flops(cfg, k == "train") for k in ("recon", "train")}
+    conv = {k: c["conv_flops"] for k, c in net.items()}
     return {
         "peak_flops": PEAK_FLOPS, "peak_bytes_per_s": PEAK_BYTES,
         "projector": {"family": pg["family"], "N": pg["N"], "K": pg["K"], "S": pg["S"],

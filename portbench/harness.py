@@ -14,11 +14,20 @@ or cell sits in a file of its own under ``portbench/``:
   metrics/<metric>.py     ``read(run) -> float | None`` for one metric
   counts/<config>.json    frozen operation counts of the configuration
   limits/<cell>.json      the limit of each number the check compares
-  reference/geometries/<kind>.py, reference/models/<kind>.py
-                          the plain reference's operators and network
+  tests/cells/<cell>.json the cell's tiny sizes and what its CPU test runs
+                          read (config and traffic overrides, span
+                          readers, the window's root spans)
+  reference/geometries/<kind>.py
+                          the plain reference's operators
+  reference/models/<kind>.py
+                          the plain reference's network: ``shapes(cfg)``
+                          and ``unroll``, which the counts also run
 
 ``BENCHMARK.json`` names the cells, the metrics and which cells report
-which; nothing here needs an edit for a new one.
+which. A new cell is its entry, ``limits/<cell>.json`` and
+``tests/cells/<cell>.json``; a new configuration adds its
+``configs/`` and ``counts/`` files; a new model kind is one file,
+``reference/models/<kind>.py``. None of them edits a file here.
 """
 
 from __future__ import annotations

@@ -24,11 +24,37 @@ import torch.nn.functional as F
 
 from portbench.reference.precision import EXACT
 
-__all__ = ["unet", "pdunet", "level_features"]
+__all__ = ["unet", "pdunet", "level_features", "unet_shapes"]
 
 
 def level_features(base: int, stem: int, depth: int):
     return [min(base * stem * (1 << d), 512) for d in range(depth + 1)]
+
+
+def unet_shapes(prefix: str, cin: int, cout: int, base: int, depth: int, stem: int) -> dict:
+    """Parameter shapes of one UNet, keyed as above under ``prefix``."""
+    feats = level_features(base, stem, depth)
+    shapes, c = {}, cin * stem * stem
+
+    def block(n, cin_, f):
+        shapes[f"{prefix}blocks.{n}.convs.0.weight"] = (f, cin_, 3, 3)
+        shapes[f"{prefix}blocks.{n}.convs.0.bias"] = (f,)
+        shapes[f"{prefix}blocks.{n}.convs.1.weight"] = (f, f, 3, 3)
+        shapes[f"{prefix}blocks.{n}.convs.1.bias"] = (f,)
+
+    for d in range(depth):
+        block(d, c, feats[d])
+        c = feats[d]
+    block(depth, c, feats[depth])
+    c = feats[depth]
+    for i, d in enumerate(reversed(range(depth))):
+        shapes[f"{prefix}ups.{i}.weight"] = (c, feats[d], 2, 2)
+        shapes[f"{prefix}ups.{i}.bias"] = (feats[d],)
+        block(depth + 1 + i, 2 * feats[d], feats[d])
+        c = feats[d]
+    shapes[f"{prefix}head.weight"] = (cout * stem * stem, c, 1, 1)
+    shapes[f"{prefix}head.bias"] = (cout * stem * stem,)
+    return shapes
 
 
 def _s2d(x, s):

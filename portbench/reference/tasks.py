@@ -5,9 +5,14 @@ unrolled network, and the training step with its optimizer.
 ``cfg`` is a configuration file of ``portbench/configs/`` (its geometry,
 model and train sections). The operators of a geometry are found by its
 ``kind`` in ``reference/geometries/<kind>.py`` (``build(g, device)``), the
-network by the model's ``kind`` in ``reference/models/<kind>.py``
-(``unroll(m, P, g, f0, A, At, complex_ops, rnd)``): a new geometry or
-model is a new file. Volumes go through in blocks of rows, so the
+network by the model's ``kind`` (``modules.reference_model``). A new
+geometry is one file; a new model kind is one file,
+``reference/models/<kind>.py``, with ``shapes(cfg)`` (the parameter shapes,
+keyed as the program's ``state_dict``) and ``unroll(m, P, g, f0, A, At,
+complex_ops, rnd)`` (the network); ``counting.py`` counts the network by
+running the two on shape stubs. A new cell is its
+``BENCHMARK.json`` entry, ``limits/<cell>.json`` and
+``tests/cells/<cell>.json``. Volumes go through in blocks of rows, so the
 reference fits beside what the program leaves allocated.
 """
 
@@ -32,8 +37,7 @@ class RefTask:
         parts = pathlib.Path(root) / "portbench" / "reference"
         self.ops_mod = modules.load(parts / "geometries" / f"{g['kind']}.py",
                                     f"reference geometry {g['kind']!r}")
-        self.model_mod = modules.load(parts / "models" / f"{self.m['kind']}.py",
-                                      f"reference model {self.m['kind']!r}")
+        self.model_mod = modules.reference_model(self.m["kind"], root)
         self.N = g["image_size"]
         self.device = torch.device(device)
         self.ops = self.ops_mod.build(g, self.device)

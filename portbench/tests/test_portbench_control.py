@@ -8,7 +8,7 @@ import pytest
 
 from portbench import harness
 from portbench.calibrate import readings
-from portbench.tests.tiny import CELLS
+from portbench.tests.tiny import CELLS, cell as tiny
 
 
 def _limits(cell):
@@ -23,15 +23,15 @@ def _check(cell, rows):
     assert controls and all(fails(r) for r in controls)
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_tiny(cell):
-    overrides, traffic = CELLS[cell]
+    t = tiny(cell)
     _check(cell, readings(cell, [101], 1, 0.2, "cpu", emit=lambda _: None,
-                          config_overrides=overrides, traffic_overrides=traffic))
+                          config_overrides=t["config"], traffic_overrides=t["traffic"]))
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_on_the_card(cell):
     import torch
 

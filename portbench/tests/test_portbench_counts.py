@@ -6,9 +6,8 @@ import json
 
 import pytest
 
-from portbench import counting, harness
-
-CONFIGS = [c["name"] for c in harness.load_spec()["configs"]]
+from portbench import counting, harness, modules
+from portbench.tests.tiny import CONFIGS, config_overrides
 
 
 def _cfg(name):
@@ -41,33 +40,41 @@ def test_projector_count_is_the_programs(name):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_parameter_shapes_are_the_programs(name):
-    from pdunet_tpu_torch.configs import get_preset
+    """The model file's shapes at the configuration's widths (the program
+    built at its cells' tiny geometry)."""
     from pdunet_tpu_torch.training.tasks import build_task
 
-    config = get_preset(_cfg(name)["preset"]).override(
-        {"geometry.image_size": 32, "geometry.n_angles": 64 if "radial" in name else 40})
-    model = build_task(config, device="cpu").model
+    cfg = _cfg(name)
+    tiny = {k: v for k, v in config_overrides(name).items() if k.startswith("geometry.")}
+    model = build_task(harness.program_config(cfg, {"batch": 1}, tiny), device="cpu").model
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert shapes == counting.pdunet_shapes(_cfg(name))
+    assert shapes == modules.reference_model(cfg["model"]["kind"]).shapes(cfg)
 
 
-def test_conv_count_matches_a_direct_count():
-    """At a tiny size the stubbed count equals FlopCounterMode over the
-    program's own model with its operators (the projector kernels are
-    ctypes calls or einsums that the counter scores separately)."""
+@pytest.mark.parametrize("train", [False, True], ids=["recon", "train"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_conv_count_matches_a_direct_count(name, train):
+    """At the configuration's cells' tiny sizes the stubbed count equals
+    FlopCounterMode over the program's own model, its operators replaced by
+    the same stubs (the projector kernels are ctypes calls or einsums that
+    the counter scores separately), and so do the operators' calls."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.training.tasks import build_task
 
-    config = get_preset("pdunet_parallel").override(
-        {"geometry.image_size": 32, "geometry.n_angles": 40, "model.base_features": 8,
-         "model.use_bfloat16": False, "train.batch_size": 1})
+    config = harness.program_config(_cfg(name), {"batch": 1}, config_overrides(name))
+    cfg = harness.resolved(_cfg(name), config)
     task = build_task(config, device="cpu")
-    task.model.A = lambda f: torch.zeros((f.shape[0], 10, 32)) + f[:, :1, :1] * 0
-    task.model.At = lambda p: torch.zeros((p.shape[0], 32, 32)) + p[:, :1, :1] * 0
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        task.model(torch.zeros(1, 10, 32), torch.zeros(1, 32, 32))
-    cfg = harness.resolved(_cfg("pdunet_parallel"), config)
-    assert counting.conv_flops(cfg, train=False) == counter.get_total_flops()
+    N = config.geometry.image_size
+    A, S = counting._sino_shape(cfg)
+    dt = torch.complex64 if task.model.complex_ops else torch.float32
+    calls = {"forward": 0, "backward": 0}
+    task.model.A = lambda f: counting._Stub.apply(f, A, S, calls)
+    task.model.At = lambda p: counting._Stub.apply(p, N, N, calls)
+    with torch.set_grad_enabled(train), FlopCounterMode(display=False) as counter:
+        out = task.model(torch.zeros(1, A, S, dtype=dt), torch.zeros(1, N, N, dtype=dt))
+        if train:
+            out.abs().mean().backward()
+    assert counting.network_counts(cfg, train) == {"conv_flops": counter.get_total_flops(),
+                                                   **calls}

@@ -6,13 +6,13 @@ import pytest
 import torch
 
 from portbench import harness
-from portbench.tests.tiny import CELLS, SEED
+from portbench.tests.tiny import SEED, cell as tiny
 
 
 def _run(cell):
-    overrides, traffic = CELLS[cell]
+    t = tiny(cell)
     return harness.run_cell(cell, SEED, 0.3, False, device="cpu",
-                            config_overrides=overrides, traffic_overrides=traffic)
+                            config_overrides=t["config"], traffic_overrides=t["traffic"])
 
 
 def _break_forward(monkeypatch, how):

@@ -42,10 +42,10 @@ def test_a_run_loads_no_jax():
     code = (
         "import sys, json; sys.path.insert(0, %r)\n"
         "from portbench import harness\n"
-        "from portbench.tests.tiny import CELLS, SEED\n"
-        "o, t = CELLS['pdunet_parallel.volume']\n"
+        "from portbench.tests.tiny import SEED, cell\n"
+        "t = cell('pdunet_parallel.volume')\n"
         "harness.run_cell('pdunet_parallel.volume', SEED, 0.2, True, device='cpu',"
-        " config_overrides=o, traffic_overrides=t)\n"
+        " config_overrides=t['config'], traffic_overrides=t['traffic'])\n"
         "print(json.dumps(harness.forbidden_modules()))\n" % str(harness.ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=harness.ROOT)

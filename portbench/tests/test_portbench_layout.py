@@ -1,4 +1,6 @@
-"""BENCHMARK.json against the shapes its format requires, and every cell found by name."""
+"""BENCHMARK.json against the shapes its format requires, every cell found
+by name, and a cell, a configuration, a traffic kind, a reference geometry
+and a model kind each added as files alone."""
 
 import json
 import re
@@ -7,7 +9,7 @@ import shutil
 import pytest
 
 from portbench import harness
-from portbench.tests.tiny import CELLS, SEED
+from portbench.tests.tiny import SEED, cell as tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -43,6 +45,7 @@ def test_cell_resolves_to_its_files(cell):
     files = harness.cell_files(SPEC, cell)
     for key in ("config", "traffic", "kind", "counts", "limits"):
         assert files[key].is_file(), (cell, key)
+    assert set(tiny(cell)) == {"config", "traffic", "read", "roots"}
     for trace in (False, True):
         for m in harness.cell_metrics(SPEC, cell, trace):
             assert (harness.HERE / "metrics" / f"{m['name']}.py").is_file()
@@ -100,9 +103,8 @@ def test_a_cell_added_as_files_alone(tmp_path):
                               "moves": "recon_slices_per_s",
                               "workloads": ["pdunet_parallel.small"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    overrides, _ = CELLS["pdunet_parallel.volume"]
     result = harness.run_cell("pdunet_parallel.small", SEED, 0.2, True, device="cpu",
-                              config_overrides=overrides,
+                              config_overrides=tiny("pdunet_parallel.volume")["config"],
                               traffic_overrides={"pool": 2, "trace_requests": [1, 2]},
                               root=tmp_path)
     assert result["correct"] and result["metrics"]["recon_requests"]["value"] >= 2
@@ -167,9 +169,9 @@ def test_a_configuration_and_a_kind_added_as_files_alone(tmp_path):
         if m["name"] == "recon_slices_per_s":
             m["workloads"].append("pdunet_parallel_s2.synth")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    overrides, _ = CELLS["pdunet_parallel.volume"]
     result = harness.run_cell("pdunet_parallel_s2.synth", SEED, 0.2, False, device="cpu",
-                              config_overrides=overrides, root=tmp_path)
+                              config_overrides=tiny("pdunet_parallel.volume")["config"],
+                              root=tmp_path)
     assert result["correct"] is True
     assert set(result["metrics"]) == {"recon_slices_per_s", "setup_s"}
     assert set(result["checks"]) == {"sino_err", "f0_err"}
@@ -195,3 +197,77 @@ def test_a_reference_geometry_found_by_name(tmp_path):
     cfg["geometry"]["kind"] = "none_such"
     with pytest.raises(FileNotFoundError):
         RefTask(cfg, "cpu", root=tmp_path)
+
+
+#: a model kind a later change might add: per iteration one 3x3 convolution
+#: on [f, A†(A f − g)], real operators only
+TOY_MODEL = '''
+import torch
+import torch.nn.functional as F
+
+
+def shapes(cfg):
+    return {f"iterations.{i}.net.{k}": s for i in range(cfg["model"]["n_iters"])
+            for k, s in (("weight", (1, 2, 3, 3)), ("bias", (1,)))}
+
+
+def unroll(m, P, g, f0, A, At, complex_ops, rnd):
+    f = f0
+    for i in range(m["n_iters"]):
+        x = torch.stack([f, At(A(f) - g)], dim=1)
+        w, b = P[f"iterations.{i}.net.weight"], P[f"iterations.{i}.net.bias"]
+        f = f + F.conv2d(rnd(x), rnd(w), b, padding=1)[:, 0]
+    return f
+'''
+
+
+def test_a_model_kind_added_as_files_alone(tmp_path):
+    """A new model kind is one file, ``reference/models/<kind>.py``: the
+    counts and the reference task find it by the configuration's
+    ``model.kind``. Its count is the closed form: n convolutions of 2 → 1
+    channels over N² pixels, 2·9·2·N² FLOP each, in the forward; in the
+    backward every weight's gradient and every input's but the first
+    iteration's, whose input needs none; 2n operator calls forward, and in
+    the backward 2(n − 1), the first iteration's needing no vjp. A kind
+    without a file names the path it looked for."""
+    import torch
+
+    from portbench import counting
+    from portbench.reference.tasks import RefTask
+
+    _copy(tmp_path)
+    models = tmp_path / "portbench/reference/models"
+    (models / "toy.py").write_text(TOY_MODEL)
+    cfg = json.loads((harness.HERE / "configs/pdunet_parallel.json").read_text())
+    cfg["geometry"].update(image_size=16, n_angles=24)
+    cfg["model"].update(kind="toy", n_iters=3)
+    n, N = 3, 16
+    conv = 2 * 9 * 2 * N * N
+    got = counting.counts(cfg, root=tmp_path)
+    assert got["conv_flops_per_slice"] == {"recon": n * conv, "train": (3 * n - 1) * conv}
+    assert got["applies_per_slice"] == {"recon": 2 + 2 * n, "train": 2 + 2 * n + 2 * (n - 1)}
+
+    ref = RefTask(cfg, "cpu", root=tmp_path)
+    P = {k: torch.full(s, 0.1) for k, s in ref.model_mod.shapes(cfg).items()}
+    img = torch.rand(2, N, N, generator=torch.Generator().manual_seed(3))
+    sino, f0 = ref.synth(img)
+    assert ref.unroll(P, sino, f0, ref.sigma()).shape == (2, N, N)
+
+    cfg["model"]["kind"] = "none_such"
+    missing = str((models / "none_such.py").resolve())
+    with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+        counting.counts(cfg, root=tmp_path)
+    with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+        RefTask(cfg, "cpu", root=tmp_path)
+
+
+@pytest.mark.parametrize("name", ["pdunet_parallel", "pdunet_radial"])
+def test_pdunet_applies_are_counted(name):
+    """Four PD-UNet iterations: A f and A† h in each, after the synthesis A
+    and the direct reconstruction (2 + 8), and in training the vjp of each
+    but the first iteration's A f₀ (+ 7)."""
+    from portbench import counting
+
+    cfg = json.loads((harness.HERE / "configs" / f"{name}.json").read_text())
+    assert cfg["model"]["n_iters"] == 4
+    assert counting.counts(cfg)["applies_per_slice"] == {"recon": 10, "train": 17}

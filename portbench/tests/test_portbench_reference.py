@@ -1,34 +1,40 @@
 """The plain reference against the program at a tiny size on the CPU, and
 the reference operators' adjoint identities."""
 
-import dataclasses
+import json
 
 import pytest
 import torch
 
+from portbench import harness
 from portbench import phantoms as ph
 from portbench.reference.precision import CONTROL, round_fp8, round_fp8_grad, round_tf32
 from portbench.reference.radial import RadialRef
 from portbench.reference.radon import ParallelRef, sparse_angles
 from portbench.reference.tasks import RefTask
-from portbench.tests.tiny import PARALLEL, RADIAL
+from portbench.tests.tiny import CONFIGS, config_overrides
 
 
 def _rel(a, r):
     return float((a - r).abs().norm() / r.abs().norm())
 
 
-@pytest.mark.parametrize("preset,over", [("pdunet_parallel", PARALLEL), ("pdunet_radial", RADIAL)])
-def test_reference_agrees_with_the_program(preset, over):
-    from pdunet_tpu_torch.configs import get_preset
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_reference_agrees_with_the_program(name, bf16):
+    """The configuration at its cells' tiny sizes, its unroll in bfloat16
+    and in float32."""
     from pdunet_tpu_torch.training.tasks import build_task
 
-    config = get_preset(preset).override(dict(over, **{"train.batch_size": 2}))
+    cfg = json.loads((harness.HERE / "configs" / f"{name}.json").read_text())
+    config = harness.program_config(cfg, {"batch": 2},
+                                    dict(config_overrides(name), **{"model.use_bfloat16": bf16}))
     task = build_task(config, device="cpu")
-    cfg = {s: dataclasses.asdict(getattr(config, s)) for s in ("geometry", "model", "train")}
+    cfg = harness.resolved(cfg, config)
     ref = RefTask(cfg, "cpu")
     gen = ph.generator("cpu", 5)
-    img = (ph.complex_phantoms if ref.complex else ph.phantoms)(gen, 2, 32, device="cpu")
+    img = (ph.complex_phantoms if ref.complex else ph.phantoms)(
+        gen, 2, config.geometry.image_size, device="cpu")
     with torch.no_grad():
         batch = task.batch_from_images(img)
         recon = task.recon_fn(task.model, batch)

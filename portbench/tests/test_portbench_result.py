@@ -8,17 +8,17 @@ import sys
 import pytest
 
 from portbench import harness
-from portbench.tests.tiny import CELLS, SEED
+from portbench.tests.tiny import CELLS, SEED, cell as tiny
 
 SPEC = harness.load_spec()
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_result_line(cell, trace):
-    overrides, traffic = CELLS[cell]
+    t = tiny(cell)
     r = harness.run_cell(cell, SEED, 0.3, bool(trace), device="cpu",
-                         config_overrides=overrides, traffic_overrides=traffic)
+                         config_overrides=t["config"], traffic_overrides=t["traffic"])
     assert list(r)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(r)[-1] == "checks" and r["correct"] is True and r["attempted"] >= 1
     assert json.loads(json.dumps(r)) == r

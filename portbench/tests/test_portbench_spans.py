@@ -1,8 +1,8 @@
 """The program's spans as ``portbench/spans.py`` and the metric files it
 loads read them: on tiny CPU runs of every cell each of the cell's readers
-gives a number, a run with no recording gives none, ``idle_spans`` names
-only program spans, and the window's spans are those before its profiled
-slice. On the card: every span's device start against its host start, the
+(``read`` in ``tests/cells/<cell>.json``) gives a number, a run with no
+recording gives none, ``idle_spans`` names only program spans, and the
+window's spans are those before its profiled slice. On the card: every span's device start against its host start, the
 root spans' launch counts as ``spans.launches`` reports them, a card step's
 marks under a CPU recording, and a CUDA graph captured while recording."""
 
@@ -13,54 +13,39 @@ import pytest
 import torch
 
 from portbench import harness, spans
-from portbench.tests.tiny import CELLS, SEED
-
-SETUP = ("setup_phase_s.plans", "setup_phase_s.opnorm", "setup_phase_s.kernels")
-#: cell → the readers that find something in its runs
-READ = {
-    "pdunet_parallel.volume": ("request_phase_ms.synthesis", "request_phase_ms.recon",
-                               "unet_ms_per_slice.recon", *SETUP),
-    "pdunet_radial.volume": ("request_phase_ms.synthesis", "request_phase_ms.recon",
-                             "unet_ms_per_slice.recon", *SETUP),
-    "pdunet_parallel.train": ("train_host_ms.step", "train_host_ms.backward",
-                              "train_queue_ms.step", *SETUP),
-}
-#: cell → the window's root spans
-ROOTS = {"pdunet_parallel.volume": {"synthesis", "recon"},
-         "pdunet_radial.volume": {"synthesis", "recon"}, "pdunet_parallel.train": {"train.step"}}
+from portbench.tests.tiny import CELLS, SEED, cell as tiny
 
 
 def test_every_reader_is_a_metric_file_read_in_some_cell():
-    assert set(spans.METRICS) == {n for names in READ.values() for n in names}
-    assert set(READ) == set(CELLS)
+    assert set(spans.METRICS) == {n for cell in CELLS for n in tiny(cell)["read"]}
     for name in spans.METRICS:
         assert (harness.HERE / "metrics" / f"{name}.py").is_file()
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_readers_on_a_recorded_run(cell):
     from pdunet_tpu_torch.utils.trace import NAMES
 
-    overrides, traffic = CELLS[cell]
-    out = spans.record_cell(cell, SEED, 0.3, device="cpu", config_overrides=overrides,
-                            traffic_overrides=traffic)
+    t = tiny(cell)
+    out = spans.record_cell(cell, SEED, 0.3, device="cpu", config_overrides=t["config"],
+                            traffic_overrides=t["traffic"])
     assert out["result"]["correct"] is True and out["spans"] > 0
-    assert set(out["metrics"]) == set(READ[cell])
+    assert set(out["metrics"]) == set(t["read"])
     assert all(math.isfinite(v) and v >= 0 for v in out["metrics"].values())
     named = {n for n, _ in out["idle_spans"]}
     assert named and named <= set(NAMES) | {"(no host event)"}
     assert out["untraced_rate"] > 0
     # calls on the CPU count no launch: the roots are there, their counts empty
-    assert out["launches"] == {r: {} for r in ROOTS[cell]} and out["setup_counts"] == {}
+    assert out["launches"] == {r: {} for r in t["roots"]} and out["setup_counts"] == {}
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_no_recording_no_reading(cell):
-    overrides, traffic = CELLS[cell]
+    t = tiny(cell)
     kept = []
     with spans._runs_kept(kept):
-        harness.run_cell(cell, SEED, 0.2, True, device="cpu", config_overrides=overrides,
-                         traffic_overrides=traffic)
+        harness.run_cell(cell, SEED, 0.2, True, device="cpu", config_overrides=t["config"],
+                         traffic_overrides=t["traffic"])
     (run,) = kept
     assert run.window_ns > 0
     assert all(harness.read_metric(name, run) is None for name in spans.METRICS)

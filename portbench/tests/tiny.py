@@ -1,20 +1,31 @@
-"""Tiny sizes of the benchmark's cells, for the CPU tests."""
+"""The benchmark's cells at tiny sizes, for the CPU tests.
 
-PARALLEL = {"geometry.image_size": 32, "geometry.n_angles": 40, "model.base_features": 8,
-            "model.n_iters": 2}
-RADIAL = {"geometry.image_size": 32, "geometry.n_angles": 64, "model.base_features": 8,
-          "model.n_iters": 2}
-#: the cells' runs here unroll in float32: a sound tiny run then reads far
-#: below the limits set for bf16 at full size, and a broken one far above
-F32 = {"model.use_bfloat16": False}
+Every cell of ``BENCHMARK.json`` has ``tests/cells/<cell>.json``:
+``config`` and ``traffic``, the overrides that shrink it (its runs here
+unroll in float32: a sound tiny run then reads far below the limits set
+for bf16 at full size, and a broken one far above); ``read``, the span
+readers that find something in its runs; ``roots``, its window's root
+spans."""
 
-#: cell → (config overrides, traffic overrides)
-CELLS = {
-    "pdunet_parallel.volume": ({**PARALLEL, **F32},
-                               {"batch": 4, "pool": 2, "trace_requests": [1, 3]}),
-    "pdunet_radial.volume": ({**RADIAL, **F32}, {"batch": 2, "pool": 2, "trace_requests": [1, 3]}),
-    "pdunet_parallel.train": ({**PARALLEL, **F32},
-                              {"batch": 4, "trace_steps": [1, 3], "phase_steps": [3, 5]}),
-}
+import json
+import pathlib
+
+from portbench import harness
+
+HERE = pathlib.Path(__file__).resolve().parent / "cells"
+SPEC = harness.load_spec()
+CELLS = sorted(w["name"] for w in SPEC["workloads"])
+CONFIGS = [c["name"] for c in SPEC["configs"]]
 
 SEED = 2 ** 33 + 17
+
+
+def cell(name: str) -> dict:
+    """The test data of the cell ``name``."""
+    return json.loads((HERE / f"{name}.json").read_text())
+
+
+def config_overrides(config: str) -> dict:
+    """The tiny overrides of the configuration ``config``: those of its
+    first cell in ``BENCHMARK.json``."""
+    return cell(next(w["name"] for w in SPEC["workloads"] if w["config"] == config))["config"]
