@@ -260,6 +260,24 @@ def test_infer_batches_open_synthesis_and_recon_roots():
         assert mine == ([] if r.name == "synthesis" else ["pd.dual", "pd.primal"] * 2)
 
 
+@pytest.mark.parametrize("n_iters", [2, 3])
+def test_lpd_recon_opens_its_unroll_spans(n_iters):
+    """An ``lpd_parallel`` batch opens ``synthesis`` and ``recon`` as roots,
+    and under ``recon`` its ConvNets' ``pd.dual`` and ``pd.primal`` once per
+    iteration, as the PD-UNet's do."""
+    sets = {**SMALL, "model.lpd_features": 8, "model.n_iters": n_iters}
+    flags = ["--preset", "lpd_parallel", "--device", "cpu", "--n-slices", "2", "--batch", "2",
+             *[a for k, v in sets.items() for a in ("--set", f"{k}={v}")]]
+    with trace.recording() as rec:
+        assert infer.main(flags) == 0
+    spans = rec.spans()
+    roots = [s for s in spans if s.parent is None and not s.name.startswith("setup.")]
+    assert [r.name for r in roots] == ["synthesis", "recon"]
+    nets = [s for s in spans if s.root == roots[1].id and s.id != roots[1].id]
+    assert [s.name for s in nets] == ["pd.dual", "pd.primal"] * n_iters
+    assert all(s.parent == roots[1].id for s in nets)
+
+
 def test_counters_are_registered_by_the_kernel_layer():
     """The kernel layer registers its counters; a root span over a counter
     registered inside it counts from 0."""
