@@ -228,11 +228,14 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``python -m pdunet_tpu_torch.{train,infer}`` on the card and a failed
      one raises; rows 1-4 must launch on both routes in each in-process run.
  22. cuDNN's NCHW <-> NHWC conversion kernels (nchwToNhwc, nhwcToNchw) per
-     bf16 recon of pdunet_parallel and pdunet_radial at batch 8, from
-     torch.profiler, beside the convolution kernels: the UNets run
-     channels_last, so there must be none; where any remain, the
-     convolution each surrounds (the op that launched it, its input
-     shapes) is printed before the check fails.
+     bf16 recon of pdunet_parallel, pdunet_radial and lpd_parallel at
+     batch 8, from torch.profiler, beside the convolution kernels: the
+     UNets and LPD's ConvNets run channels_last, so there must be none;
+     where any remain, the convolution each surrounds (the op that
+     launched it, its input shapes) is printed before the check fails.
+     In lpd_parallel's recon the ConvNet counters (``convnet.*``) read 20
+     channels_last calls and 40 padded convolutions per ``recon`` root
+     span, as ``portbench/spans.py``'s ``launches`` reads them.
 
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
@@ -263,6 +266,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -3788,23 +3792,33 @@ def scripts_phase(card):
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
 
 
+#: the ConvNet counters per lpd_parallel recon: 10 iterations × 2 nets, each
+#: padding its first convolution's inputs (7 or 6 channels) and its last
+#: one's outputs (5)
+CONVNET_COUNTS = {"convnet.channels_last": 20, "convnet.padded_convs": 40}
+
+
 def layout_phase(dev, card, batch=8):
     """Phase 22: cuDNN's NCHW <-> NHWC conversion kernels per bf16 recon of
-    pdunet_parallel and pdunet_radial at batch ``batch`` (torch.profiler over
-    one recon after a warm one), beside the convolution kernels. The UNets
-    run channels_last, so none may remain: where any do, the op that
-    launched each (the convolution they surround) and its input shapes are
-    printed, then the check fails."""
+    pdunet_parallel, pdunet_radial and lpd_parallel at batch ``batch``
+    (torch.profiler over one recon after a warm one), beside the
+    convolution kernels. The UNets and ConvNets run channels_last, so none
+    may remain: where any do, the op that launched each (the convolution
+    they surround) and its input shapes are printed, then the check fails.
+    LPD's ConvNet counters per ``recon`` root, read by ``portbench/spans.py``
+    from a recording of one more recon, must read ``CONVNET_COUNTS``."""
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench import spans
     from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.training.tasks import build_task
+    from pdunet_tpu_torch.utils import trace
 
     def layout(name):
         return any(k.lower() in name.lower() for k in LAYOUT_KERNELS)
 
     out = {}
-    for name in ("pdunet_parallel", "pdunet_radial"):
+    for name in ("pdunet_parallel", "pdunet_radial", "lpd_parallel"):
         config = get_preset(name).override({"train.batch_size": batch})
         task = build_task(config, device=dev)
         task.init_params(torch.Generator().manual_seed(0))
@@ -3835,12 +3849,22 @@ def layout_phase(dev, card, batch=8):
             print(f"[chip_smoke]   {n} x around {key}")
         out[name] = {"batch": batch, "layout_kernels": n_layout, "conv_kernels": n_conv,
                      "kernels": len(kernels), "around": around}
+        with torch.inference_mode(), trace.recording(dev) as rec:
+            task.recon_fn(task.model, b)
+        run = types.SimpleNamespace(spans=rec.spans(), window_ns=0, elapsed=math.inf)
+        counts = {k: v for k, v in spans.launches(run).get("recon", {}).items()
+                  if k.startswith("convnet.")}
+        print(f"[chip_smoke] {name} ConvNet counters per recon: {counts}")
+        out[name]["convnet_counts"] = counts
         del task
         torch.cuda.empty_cache()
     for name, r in out.items():
         check(r["layout_kernels"] == 0,
               f"{name}: {r['layout_kernels']} cuDNN layout conversions per recon; "
               f"around {sorted(r['around'])}")
+        want = CONVNET_COUNTS if name == "lpd_parallel" else {}
+        check(r["convnet_counts"] == want,
+              f"{name}: ConvNet counters {r['convnet_counts']} per recon, not {want}")
     return out
 
 

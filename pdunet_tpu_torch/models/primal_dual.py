@@ -28,6 +28,18 @@ modules, so parameter names (``state_dict`` keys) do not depend on it.
 Each iteration's dual and primal nets run inside the spans ``pd.dual`` and
 ``pd.primal`` (``utils/trace.py``), with their concatenated input and
 residual add; under remat the backward's recomputation opens them again.
+
+LPD's ``ConvNet`` computes in NHWC (``torch.channels_last``), the layout of
+every convolution kernel cuDNN runs on the card, from one entry copy (cast,
+channels_last, zero channels) to one exit pass (float32 NCHW, the pad
+channels dropped, the residual added). On the card each convolution's
+input and output channels are padded with exact zeros to a multiple of 8
+(16 bytes of bf16, what cuDNN's tensor-op NHWC kernels read: given 7, 6 or
+5 channels, cuDNN pads them itself in a kernel of its own on every call,
+and for 7 or 6 input channels picks a kernel twice as slow), the weights
+and biases with zero slices per call; the parameters keep their shapes.
+On the CPU nothing is padded, so the arithmetic and the counted operations
+are the network's.
 """
 
 from __future__ import annotations
@@ -35,10 +47,12 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pdunet_tpu_torch.models.unet import Conv, UNet
+from pdunet_tpu_torch.models.unet import Conv, UNet, _conv
+from pdunet_tpu_torch.utils import trace
 from pdunet_tpu_torch.utils.trace import span
 
 __all__ = ["PReLU", "ConvNet", "PDIteration", "UnrolledPrimalDual", "make_lpd", "make_pdunet"]
@@ -58,11 +72,42 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
 
 
+def _channel_multiple(device: torch.device) -> int:
+    """The multiple ``ConvNet`` pads its convolutions' channels to: 8 on the
+    card, 1 (no padding) on the CPU."""
+    return 8 if device.type == "cuda" else 1
+
+
+def _round_up(n: int, m: int) -> int:
+    return n + (-n) % m
+
+
+def _convnet_entry(x: torch.Tensor, channels: int, dtype) -> torch.Tensor:
+    """NCHW (B, C, H, W) → channels_last (B, ``channels``, H, W) in
+    ``dtype``, channels C onward zero: one copy, and a fill of the pad
+    channels."""
+    b, c, h, w = x.shape
+    out = torch.empty((b, h, w, channels), dtype=dtype, device=x.device).permute(0, 3, 1, 2)
+    out[:, c:].zero_()
+    out[:, :c].copy_(x)
+    return out
+
+
 class ConvNet(nn.Module):
     """The small LPD subnet (flax ``ConvNet``, its default 3 layers): two 3x3
     convolutions each followed by PReLU, then a linear 3x3 convolution. The
     input is cast to ``dtype``, the output to float32. Submodules:
-    ``convs`` = Conv_0 … Conv_2, ``acts`` = PReLU_0, PReLU_1."""
+    ``convs`` = Conv_0 … Conv_2, ``acts`` = PReLU_0, PReLU_1.
+
+    ``forward`` takes and returns NCHW float32; ``residual`` (NCHW, the
+    output's shape) is added to the output in its exit pass. Between the
+    two the activations are channels_last in ``dtype``, their channels
+    zero-padded on the card (module docstring)."""
+
+    #: calls on the card (all channels_last) and their convolutions whose
+    #: channels were padded; read per root span through ``utils/trace.py``
+    channels_last_calls = 0
+    padded_convs = 0
 
     def __init__(self, in_channels: int, out_channels: int, features: int = 32,
                  dtype=torch.float32, generator=None, device="cuda"):
@@ -74,11 +119,36 @@ class ConvNet(nn.Module):
             [Conv(cin, cout, 3, **kw) for cin, cout in zip(widths, widths[1:])])
         self.acts = nn.ModuleList([PReLU(device=device) for _ in range(2)])
 
-    def forward(self, x):
-        x = x.to(self.dtype)
+    def _padded_conv(self, conv: Conv, x: torch.Tensor, m: int) -> torch.Tensor:
+        """``conv`` of the channels_last ``x``, whose channels may be padded,
+        with its output channels padded to a multiple of ``m``: the weight
+        and bias gain zero slices to match."""
+        w, b = conv.weight, conv.bias
+        cout, cin = w.shape[:2]
+        pad_in, pad_out = x.shape[1] - cin, _round_up(cout, m) - cout
+        if pad_in or pad_out:
+            w = F.pad(w, (0, 0, 0, 0, 0, pad_in, 0, pad_out))
+            b = F.pad(b, (0, pad_out))
+            if x.is_cuda:
+                ConvNet.padded_convs += 1
+        return _conv(F.conv2d, x, w, b, self.dtype, padding=w.shape[-1] // 2)
+
+    def forward(self, x, residual=None):
+        m = _channel_multiple(x.device)
+        if x.is_cuda:
+            ConvNet.channels_last_calls += 1
+        x = _convnet_entry(x, _round_up(x.shape[1], m), self.dtype)
         for conv, act in zip(self.convs, self.acts):
-            x = act(conv(x))
-        return self.convs[-1](x).float()
+            x = act(self._padded_conv(conv, x, m))
+        last = self.convs[-1]
+        y = self._padded_conv(last, x, m)[:, :last.weight.shape[0]]
+        if residual is None:
+            return y.to(torch.float32, memory_format=torch.contiguous_format)
+        return residual + y  # float32, in the residual's (NCHW) layout
+
+
+trace.counter("convnet.channels_last", lambda: ConvNet.channels_last_calls)
+trace.counter("convnet.padded_convs", lambda: ConvNet.padded_convs)
 
 
 class PDIteration(nn.Module):
@@ -86,6 +156,11 @@ class PDIteration(nn.Module):
         super().__init__()
         self.dual = dual
         self.primal = primal
+
+
+def _update(net: nn.Module, r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The residual update r + net(x); a ``ConvNet`` adds ``r`` in its exit pass."""
+    return net(x, residual=r) if isinstance(net, ConvNet) else r + net(x)
 
 
 def _to_channels(z: torch.Tensor) -> torch.Tensor:
@@ -136,10 +211,10 @@ class UnrolledPrimalDual(nn.Module):
         """One unroll step: the dual update, then the primal update."""
         Af = self._pack(self.A(self._unpack(f)))
         with span("pd.dual"):
-            h = h + it.dual(torch.cat([h, Af, g_ch], dim=1))
+            h = _update(it.dual, h, torch.cat([h, Af, g_ch], dim=1))
         Ath = self._pack(self.At(self._unpack(h)))
         with span("pd.primal"):
-            f = f + it.primal(torch.cat([f, Ath], dim=1))
+            f = _update(it.primal, f, torch.cat([f, Ath], dim=1))
         return f, h
 
     def forward(self, g: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:

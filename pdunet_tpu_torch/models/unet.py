@@ -6,10 +6,10 @@ the activations as they lie and converts nothing around a convolution.
 ``UNet.forward`` still takes and returns NCHW float32: one copy at the
 entry writes the padded, cast, space-to-depth'd input channels_last, one at
 the exit the head's depth-to-space, cast to float32 and crop. ``Conv`` and
-``ConvTranspose`` run in their input's memory format, so LPD's ``ConvNet``,
-which gives them NCHW, keeps computing in NCHW (on the CPU every
+``ConvTranspose`` run in their input's memory format (on the CPU every
 convolution computes in NCHW and hands its output back in its input's
-layout). ``space_to_depth`` and
+layout); LPD's ``ConvNet`` gives ``_conv`` channels_last tensors of its own
+(``models/primal_dual.py``). ``space_to_depth`` and
 ``depth_to_space`` keep the JAX package's NHWC signature, and the stem's
 channel order is flax's: channel (s_h·s + s_w)·C + c, which differs from
 ``torch.nn.functional.pixel_unshuffle``.

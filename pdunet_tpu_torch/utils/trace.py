@@ -39,7 +39,10 @@ counter registered with :func:`counter` (``Span.counts``, the nonzero
 ones). The kernel layer registers its own: ``ops/radon/cuda_kernels.py``
 each ``.launches``, ``.launches_tc`` and ``.launches_split`` of its
 wrappers and table builders (calls on the CPU do not count),
-``ops/radon/_build.py`` its ``kernels_built`` and ``kernels_loaded``.
+``ops/radon/_build.py`` its ``kernels_built`` and ``kernels_loaded``, and
+``models/primal_dual.py`` ``convnet.channels_last`` and
+``convnet.padded_convs``: LPD ConvNet calls on the card, and those of their
+convolutions whose channels were zero-padded.
 
 The program's spans (:data:`NAMES`), where they are opened:
 

@@ -27,8 +27,10 @@ from pdunet_tpu.models.unet import space_to_depth as jax_s2d
 from pdunet_tpu.ops.radon.parallel import make_parallel_ops as jax_ops
 from pdunet_tpu_torch.geometry import ParallelGeometry
 from pdunet_tpu_torch.models.convert import flax_to_torch, load_flax_unet
+from pdunet_tpu_torch.models import primal_dual
 from pdunet_tpu_torch.models.primal_dual import ConvNet, make_pdunet
-from pdunet_tpu_torch.models.unet import Conv, ConvTranspose, UNet, depth_to_space, space_to_depth
+from pdunet_tpu_torch.models.unet import (Conv, ConvTranspose, UNet, _conv, depth_to_space,
+                                          space_to_depth)
 from pdunet_tpu_torch.ops.radon.parallel import make_parallel_ops
 
 torch.set_num_threads(1)
@@ -317,17 +319,121 @@ def test_unet_loads_an_nchw_state_dict(bf16, tol):
     assert rel(out, ref) < tol
 
 
-def test_convnet_keeps_nchw():
-    """LPD's ConvNet shares Conv: it still gives every convolution NCHW
-    contiguous inputs and gets NCHW contiguous outputs, since Conv follows
-    its input's layout."""
+# -- LPD's ConvNet: channels_last inside, channels zero-padded on the card ---------
+
+def _record_convnet_convs(monkeypatch):
+    """Every ``_conv`` call of ``models/primal_dual.py``: a list that fills
+    with (input, weight, bias, output) per call; the weight and bias keep
+    their gradients."""
+    seen = []
+
+    def record(op, x, w, b, dtype, **kw):
+        if w.requires_grad:
+            w.retain_grad()
+            b.retain_grad()
+        out = _conv(op, x, w, b, dtype, **kw)
+        seen.append((x, w, b, out))
+        return out
+
+    monkeypatch.setattr(primal_dual, "_conv", record)
+    return seen
+
+
+def test_convnet_pads_only_on_the_card():
+    assert primal_dual._channel_multiple(torch.device("cuda")) == 8
+    assert primal_dual._channel_multiple(torch.device("cpu")) == 1
+
+
+@pytest.mark.parametrize("multiple", [1, 8], ids=["cpu", "card"])
+def test_convnet_runs_channels_last(monkeypatch, multiple):
+    """Every convolution of LPD's ConvNet takes and gives channels_last
+    tensors in the compute dtype, their channels padded to the device's
+    multiple (the card's 8 forced here on the CPU) with zero weight and bias
+    slices; the ConvNet takes and returns NCHW float32 with the unpadded
+    channels; its parameters keep their shapes, layout and state-dict keys."""
+    monkeypatch.setattr(primal_dual, "_channel_multiple", lambda device: multiple)
     net = ConvNet(7, 5, features=32, dtype=torch.bfloat16, device="cpu")
-    seen, handles = _record_convs(net)
+    seen = _record_convnet_convs(monkeypatch)
     with torch.no_grad():
         out = net(torch.randn(2, 7, 19, 26))
-    for h in handles:
-        h.remove()
     assert len(seen) == 3
-    assert all(_nchw(t_in) and _nchw(t_out) for t_in, t_out in seen)
+    up = primal_dual._round_up
+    for (x, w, b, y), (cin, cout) in zip(seen, [(7, 32), (32, 32), (32, 5)]):
+        assert _channels_last(x) and _channels_last(y)
+        assert x.dtype == y.dtype == torch.bfloat16
+        assert x.shape[1] == w.shape[1] == up(cin, multiple)
+        assert y.shape[1] == w.shape[0] == b.shape[0] == up(cout, multiple)
+        assert not w[cout:].any() and not w[:, cin:].any() and not b[cout:].any()
+    assert _nchw(out) and out.dtype == torch.float32 and out.shape == (2, 5, 19, 26)
+    assert {k: tuple(v.shape) for k, v in net.state_dict().items()} == {
+        "convs.0.weight": (32, 7, 3, 3), "convs.0.bias": (32,),
+        "convs.1.weight": (32, 32, 3, 3), "convs.1.bias": (32,),
+        "convs.2.weight": (5, 32, 3, 3), "convs.2.bias": (5,),
+        "acts.0.negative_slope": (), "acts.1.negative_slope": ()}
     assert all(p.is_contiguous() for p in net.parameters())
-    assert _nchw(out) and out.dtype == torch.float32
+
+
+def _plain_convnet(net, x):
+    """The ConvNet as plain NCHW ``F.conv2d`` + PReLU on its parameters."""
+    for conv, act in zip(net.convs, net.acts):
+        x = F.conv2d(x, conv.weight, conv.bias, padding=1)
+        x = torch.where(x >= 0, x, act.negative_slope * x)
+    return F.conv2d(x, net.convs[-1].weight, net.convs[-1].bias, padding=1)
+
+
+@pytest.mark.parametrize("cin,cout", [(7, 5), (6, 5), (14, 10), (8, 8)])
+def test_convnet_padding_is_exact(monkeypatch, cin, cout):
+    """In float64, with the card's padding forced on the CPU, the ConvNet
+    (its residual form, as the unroll calls it) matches the plain NCHW
+    composition to 1e-12, and so do the gradients of its input, weights,
+    biases and slopes; the padded weights' and biases' gradients are exactly
+    zero in their pad slices; the output without a residual is the same
+    values in float32."""
+    monkeypatch.setattr(primal_dual, "_channel_multiple", lambda device: 8)
+    net = ConvNet(cin, cout, features=32, dtype=torch.float64,
+                  generator=torch.Generator().manual_seed(cin), device="cpu").double()
+    gen = torch.Generator().manual_seed(10 + cout)
+    with torch.no_grad():
+        for p in net.parameters():  # biases and slopes away from their init
+            if p.dim() < 4:
+                p.uniform_(-0.3, 0.3, generator=gen)
+    x = torch.randn(2, cin, 11, 13, dtype=torch.float64, generator=gen)
+    r = torch.randn(2, cout, 11, 13, dtype=torch.float64, generator=gen)
+    probe = torch.randn(2, cout, 11, 13, dtype=torch.float64, generator=gen)
+
+    def grads(fn):
+        xg = x.clone().requires_grad_()
+        net.zero_grad()
+        out = fn(xg)
+        (out * probe).sum().backward()
+        return out.detach(), [xg.grad] + [p.grad.clone() for p in net.parameters()]
+
+    want, want_g = grads(lambda xg: r + _plain_convnet(net, xg))
+    seen = _record_convnet_convs(monkeypatch)
+    got, got_g = grads(lambda xg: net(xg, residual=r))
+    assert got.dtype == torch.float64 and _nchw(got)
+    assert rel(got, want) <= 1e-12
+    for g, w in zip(got_g, want_g):
+        assert g.shape == w.shape and rel(g, w) <= 1e-12
+    padded, up = 0, primal_dual._round_up
+    for (_, w, b, _), conv in zip(seen, net.convs):
+        o, i = conv.weight.shape[:2]
+        assert w.shape[:2] == w.grad.shape[:2] == (up(o, 8), up(i, 8))
+        assert torch.equal(w.grad[:o, :i], conv.weight.grad)
+        assert torch.equal(b.grad[:o], conv.bias.grad)
+        assert not w.grad[o:].any() and not w.grad[:, i:].any() and not b.grad[o:].any()
+        padded += w.shape[:2] != (o, i)
+    assert padded == (cin % 8 > 0) + (cout % 8 > 0)
+    with torch.no_grad():
+        assert torch.equal(net(x), net(x, residual=torch.zeros_like(r)).float())
+
+
+def test_convnet_counts_only_card_calls():
+    """The counters ``convnet.channels_last`` and ``convnet.padded_convs``
+    are registered with the trace module and count no CPU call."""
+    from pdunet_tpu_torch.utils import trace
+
+    before = {k: trace._COUNTERS[k]() for k in ("convnet.channels_last", "convnet.padded_convs")}
+    with torch.no_grad():
+        ConvNet(7, 5, features=8, device="cpu")(torch.randn(1, 7, 8, 8))
+    assert {k: trace._COUNTERS[k]() for k in before} == before
