@@ -17,8 +17,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      off for the reference; both routes' tables bit-equal to the plain
      builders'; both routes against the plain versions of their own tiling
      and arithmetic; both again at B = 1 and 32 and at a size whose rows do
-     not fill a tile (96², 24 of 96 angles), and the CUDA-core kernels in
-     f32 and bf16 (the A/B baseline);
+     not fill a tile (96², 24 of 96 angles);
   3. the adjoint dot-product test of the routed kernel pair in float32
      (≤ 1e-5, on the split route), and of the bf16 tensor-core pair per
      group: its mismatch at most 2× the plain bf16 pair's plus 1e-4;
@@ -28,19 +27,18 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      tables built once per group, every bf16 A and A† (the power iteration
      in build_task, 2·n_iters per op per batch in recon_fn) on the bf16
      tensor-core route, synthesis and FBP on the split route, and no
-     CUDA-core pair launch; the card's f0 must match the plain path on the
+     per-angle launch; the card's f0 must match the plain path on the
      CPU, and a cut-down float32 task must reconstruct the same on the card
      and on the CPU, with TF32 off and with torch's default (cuDNN's TF32
      allowed: the UNet's f32 convolutions pin full f32 themselves);
   5. timings of each kernel beside its bound and its plain version, a
      torch.matmul of stage 1's shape as a labelled yardstick (bf16; full f32
-     for the f32 route), each tensor-core route against the CUDA-core
-     kernels in turns at B = 4 and B = 256, warm and with the L2 cache
-     flushed before each call, the split route's bound (stage 1 as three
-     bf16 products, stages 2-3 in FP32) beside the FP32 one, both adjoints'
-     times against their slice counts at B = 4, the table build times,
-     batch_from_images on either f32 route at batch 4 and 256, and
-     reconstruction slices/s and profile at batch 4;
+     for the f32 route), each tensor-core route at B = 4 and B = 256, warm
+     and with the L2 cache flushed before each call, the split route's
+     bound (stage 1 as three bf16 products, stages 2-3 in FP32) beside the
+     FP32 one, both adjoints' times against their slice counts at B = 4,
+     the table build times, batch_from_images on the split route at batch
+     4 and 256, and reconstruction slices/s and profile at batch 4;
   6. at the radial path's shapes (pdunet_radial: 256² complex images, 128 of
      512 golden-angle spokes of 512 samples, so the per-angle kernels see
      B' = 2·4 = 8 real images, A_x = A_y = 64 spokes, K = 256, S = 1024),
@@ -49,8 +47,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      tensor-core route) and bf16 (the tensor-core route), each from the
      plan's tables, both groups, to the same tolerances; both routes against
      the plain versions of their own tiling and arithmetic, again at B' = 2
-     and on the ragged 32² radial plan (24 spokes of 64 samples), and the
-     CUDA-core kernels in f32 and bf16 (the A/B baseline); the complex
+     and on the ragged 32² radial plan (24 spokes of 64 samples); the complex
      adjoint dot test of the fourier-slice NUFFT (≤ 1e-5), the f32 dot test
      of the split route's per-angle operators (y = A x + noise, ≤ 1e-5) and
      the bf16 dot test of the tensor-core pair per group (≤ 2× the plain
@@ -62,20 +59,20 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      group, every bf16 A and A† (the power iteration in build_task,
      2·n_iters per op per batch in recon_fn) on the tensor-core route,
      synthesis and the DCF adjoint (2 per op per batch_from_images, 4 per
-     op per batch) on the split route, and no CUDA-core or pair kernel; the
+     op per batch) on the split route, and no pair kernel; the
      card's sino and f0 must match the CPU plain path (batch 1), and a
      cut-down f32 radial task (split route) must reconstruct the same on
      card and CPU;
   8. timings of the per-angle kernels beside their bound, plain version and
      stage-1 matmul yardstick (bf16; full f32 for the f32 route), each
-     tensor-core route against the CUDA-core kernels in turns at B' = 8 and
-     B' = 256 (bench's batch 128), warm and L2-cold, the split route's
-     bound beside the FP32 one, both adjoints' times against their slice
-     counts at B' = 8, each call's device time by kernel on both routes,
-     the table builds, batch_from_images on either f32 route at batch 4 and
-     128, and the radial recon at batch 4: slices/s with the per-angle bf16
-     calls on either route in turns, the host's time to enqueue one recon,
-     and the profile on both routes;
+     tensor-core route at B' = 8 and B' = 256 (bench's batch 128), warm and
+     L2-cold, the split route's bound beside the FP32 one, both adjoints'
+     times against their slice counts at B' = 8, each call's device time by
+     kernel on both routes, the table builds, batch_from_images on the split
+     route at batch 4 and 128, and the radial recon at batch 4: slices/s,
+     the host's time to enqueue one recon, and the profile; then σ of
+     build_task's power iteration on the bf16 operators against σ from
+     their plain versions on the card (≤ 5e-3);
   9. the two kernel probes as a user runs them (``python -m
      pdunet_tpu_torch.scripts.trig_proto`` on its three plans: flagship,
      256², 90 of 360 angles, B=32; sino_unet_parallel's dense 360-angle
@@ -83,15 +80,12 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``pack_proto`` on its three plans: flagship, pdunet_radial's 128-spoke
      plan at B' = 8, sino_unet_radial's dense 512-spoke plan at B' = 8 and
      128 with the shipped f32 adjoint's table probes; their own checks and
-     timings); launch counters must show each probe kernel and each
-     CUDA-core baseline of rows 5 and 6 ran;
+     timings); launch counters must show each probe kernel ran;
  10. at the flagship shapes, each probe kernel (doubling and no-trig pair
      forward and packed per-angle forward and adjoint, all on the tensor
-     cores, and the CUDA-core kernels of rows 5 and 6) against its plain
-     version, f32 and bf16, both groups (≤ 1e-5 / ≤ 5e-3); the packed
-     kernels with exact trig in bf16 too; the CUDA-core packed = the
-     CUDA-core per-angle kernels in f32 (≤ 1e-5) and its adjoint dot test
-     in f32; then row 5's tensor-core kernels on the flagship groups (B =
+     cores) against its plain version, f32 and bf16, both groups (≤ 1e-5 /
+     ≤ 5e-3); the packed kernels with exact trig in bf16 too; then row 5's
+     tensor-core kernels on the flagship groups (B =
      32), the dense plan (B = 8), pdunet_fan's backing plan (B = 4), a 96²
      plan (B = 4) and 384² and 512² plans (B = 2), both groups, bf16 and
      f32: against the plain versions (≤ 5e-3 / ≤ 1e-5), against the plain
@@ -107,8 +101,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      exact trig ≤ 5e-3, f32 ≤ 1e-5) and the f32 dot test (y = A x + noise,
      ≤ 1e-5);
  11. CUDA-event timings of the probe kernels beside their bound (f32: the
-     split bound), plain version and stage-1 matmul yardstick, the shipped
-     tensor-core routes and their CUDA-core kernels;
+     split bound), plain version and stage-1 matmul yardstick, and the
+     shipped tensor-core routes;
  12. bench's headline path (``pdunet_tpu_torch.bench``) at batch 32: its
      JSON row, and launch counters showing it ran the pair kernels only;
  13. training: a few steps of ``training.loop.train`` for ``pdunet_parallel``
@@ -116,8 +110,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      finite nonzero gradient norms, every parameter moved, the launch
      counters of the whole run (from 0 before it) and of one step after a
      warm one (16 bf16 forward and 14 bf16 adjoint group calls, the
-     backward's included, and 2 + 2 split ones per step; no CUDA-core,
-     probe or other-geometry launch); the step's time (host clock), its
+     backward's included, and 2 + 2 split ones per step; no probe or
+     other-geometry launch); the step's time (host clock), its
      split (CUDA events: synthesis, forward with the loss, backward,
      optimizer), idle share (torch.profiler) and peak memory; one f32 step
      of a cut-down task on the card and on the CPU from the same weights
@@ -138,7 +132,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      synthesis and none per recon, sino 2 split forward per synthesis and 2
      split adjoint per recon, lpd 42 + 42 bf16 in build_task and 20 + 20 per
      recon; each route's tables built once per plan and group; no
-     CUDA-core, per-angle or probe launch), recon time and profile, a
+     per-angle or probe launch), recon time and profile, a
      cut-down f32 task on card and CPU, a few train() steps at the preset's
      batch (finite losses, every parameter moved, whole-run counts), one
      step's launches after a warm one (fbp 2 + 2 split, sino 4 + 2 split,
@@ -163,7 +157,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      8 and 128 (≤ 1e-5) and timed beside the split bound, the plain version
      and a full-f32 matmul of stage 1's shape; (b) the preset at full width
      (2 split adjoint calls per recon; per step 4 split forward and 2 split
-     adjoint; no pair, bf16 or CUDA-core launch).
+     adjoint; no pair or bf16 launch).
  17. file-backed data: the native data library must build; stores of 48
      slices at 256² in the npy container (real, and complex for MRI) and
      an HU-domain volume (convert_volume); (17) pdunet_parallel through
@@ -240,9 +234,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
 Output: a ``{"kernels": [...]}`` JSON line (twelve kernels: the six TPU
 kernel rows, row 5 as its doubling and no-trig variants, and the trig-table
 builders of both routes of the pair and of the per-angle kernels; rows 5
-and 6 carry the shipped tensor-core route's and their CUDA-core kernels'
-times beside their own and their probe script's records of its three
-plans; rows 1-4
+and 6 carry the shipped tensor-core route's times beside their own and
+their probe script's records of its three plans; rows 1-4
 carry their launches per train step, rows 1-2 also their launches on each
 slice-B path and on pdunet_fan's, their dense-plan split-route times and
 their times on the fan backing plans, rows 3-4 their launches on
@@ -621,15 +614,14 @@ def pair_calls(ck, plan, tabs, f, p):
         a = (p[g], *pair_rows(plan, g), plan.spec, plan.Wc, plan.Ws, L, g == "x")
         if impl is ck.backproject_pair_group:
             return impl(*a, N, cdt, tables=tabs[cdt][g])
-        return impl(*a, N, cdt) if impl is ck._backproject_pair_cc else impl(*a, cdt)
+        return impl(*a, cdt)
 
     return fwd, adj
 
 
 def pair_counts(ck):
     """(launches, bf16 tensor-core launches, split-bf16 launches) of the
-    pair wrappers, and the launches of the table builders and of the
-    CUDA-core pair functions (the A/B baseline)."""
+    pair wrappers, and the launches of the table builders."""
     return {"project_pair_group": (ck.project_pair_group.launches,
                                    ck.project_pair_group.launches_tc,
                                    ck.project_pair_group.launches_split),
@@ -637,9 +629,7 @@ def pair_counts(ck):
                                        ck.backproject_pair_group.launches_tc,
                                        ck.backproject_pair_group.launches_split),
             "build_pair_tables": (ck.build_pair_tables.launches, 0, 0),
-            "build_pair_split_tables": (ck.build_pair_split_tables.launches, 0, 0),
-            "_project_pair_cc": (ck._project_pair_cc.launches, 0, 0),
-            "_backproject_pair_cc": (ck._backproject_pair_cc.launches, 0, 0)}
+            "build_pair_split_tables": (ck.build_pair_split_tables.launches, 0, 0)}
 
 
 def pair_tables(ck, plan):
@@ -652,20 +642,18 @@ def pair_tables(ck, plan):
                                         args)}
 
 
-def route_ab(ops, calls_for, cost, mm_shape, card, batches, dev, gen, cdt=torch.bfloat16,
-             bound=None, key="tc"):
-    """Device times per group call (mean of x and y) of two routes of each
-    kernel at operand type ``cdt``, the CUDA-core one ("cc") and the
-    tensor-core one (``key``: "tc", or "split" for the f32 split-bf16
-    route) in turns (cc, new, new, cc), warm and with the L2 cache flushed
+def route_times(ops, calls_for, cost, mm_shape, card, batches, dev, gen, cdt=torch.bfloat16,
+                bound=None, key="tc"):
+    """Device times per group call (mean of x and y) of each kernel's route
+    at operand type ``cdt`` (``key``: "tc" for the bf16 tensor-core route,
+    "split" for the f32 split-bf16 one), warm and with the L2 cache flushed
     before each call, at each batch size B, beside the bound and a
     torch.matmul of stage 1's shape in ``cdt`` (TF32 off: full f32 for
-    float32). ``ops`` maps each kernel to its (tensor-core wrapper,
-    CUDA-core function); ``calls_for(B)`` gives each kernel's call(g, cdt,
-    impl) on random inputs of batch B; ``cost(B)`` its (flops, bytes) per
-    call; ``bound(B)``, if given, its (bound ms, what); ``mm_shape(B)`` the
-    yardstick's (matrices, rows, depth, columns). Keys of float32 runs end
-    in ``_f32``."""
+    float32). ``ops`` maps each kernel to its wrapper; ``calls_for(B)``
+    gives each kernel's call(g, cdt, impl) on random inputs of batch B;
+    ``cost(B)`` its (flops, bytes) per call; ``bound(B)``, if given, its
+    (bound ms, what); ``mm_shape(B)`` the yardstick's (matrices, rows,
+    depth, columns). Keys of float32 runs end in ``_f32``."""
     tname = str(cdt).split(".")[1]
     sfx = "" if cdt == torch.bfloat16 else "_f32"
     flush = torch.empty(64 * 2 ** 20, device=dev)  # 256 MB
@@ -676,24 +664,18 @@ def route_ab(ops, calls_for, cost, mm_shape, card, batches, dev, gen, cdt=torch.
         peak_bound = bound_ms(fl, nb, tname)  # the operand type's own peak
         bnd, by = bound(B) if bound is not None else peak_bound
         iters = 10 if B <= 32 else 4
-        for op, (tc, cc) in ops.items():
+        for op, impl in ops.items():
             call = calls[op]
-            turns = {}
-            for mode, buf in (("", None), ("_cold", flush)):
-                for impl, k in ((cc, "cc"), (tc, key), (tc, key), (cc, "cc")):
-                    ms = sum(device_ms(lambda g=g, impl=impl: call(g, cdt, impl), iters, buf)
-                             for g in "xy") / 2
-                    turns.setdefault(f"ms_{k}{sfx}{mode}_b{B}", []).append(ms)
-            row = {k: sum(v) / len(v) for k, v in turns.items()}
+            row = {f"ms_{key}{sfx}{mode}_b{B}":
+                   sum(device_ms(lambda g=g: call(g, cdt, impl), iters, buf) for g in "xy") / 2
+                   for mode, buf in (("", None), ("_cold", flush))}
             row[f"bound_ms{sfx}_b{B}"] = bnd
             if bound is not None:
                 row[f"bound_ms{sfx}_{tname}_peak_b{B}"] = peak_bound[0]
             out[op].update(row)
             new_ms = row[f"ms_{key}{sfx}_b{B}"]
             print(f"[time] {op} {tname} at B={B}: {key} route {new_ms:.4f} ms warm, "
-                  f"{row[f'ms_{key}{sfx}_cold_b{B}']:.4f} ms cold L2; CUDA cores "
-                  f"{row[f'ms_cc{sfx}_b{B}']:.4f} / {row[f'ms_cc{sfx}_cold_b{B}']:.4f} ms; turns "
-                  f"{ {k: [round(v, 4) for v in vs] for k, vs in turns.items()} }; bound "
+                  f"{row[f'ms_{key}{sfx}_cold_b{B}']:.4f} ms cold L2; bound "
                   f"{bnd:.4f} ms ({by}; over the {tname} peak alone {peak_bound[0]:.4f}), "
                   f"{fl / (new_ms * 1e-3) / 1e12:.1f} TFLOP/s ({card})")
         del calls
@@ -765,25 +747,22 @@ GROUP_SPLIT_KERNELS = ("group_split_tables", "group_split_prep", "group_split_fw
 
 def group_counts(ck):
     """(launches, bf16 tensor-core launches, split-bf16 launches) of the
-    per-angle wrappers, and the launches of their table builders and of the
-    CUDA-core per-angle functions (the A/B baseline)."""
+    per-angle wrappers, and the launches of their table builders."""
     return {"project_group": (ck.project_group.launches, ck.project_group.launches_tc,
                               ck.project_group.launches_split),
             "backproject_group": (ck.backproject_group.launches,
                                   ck.backproject_group.launches_tc,
                                   ck.backproject_group.launches_split),
             "build_group_tables": (ck.build_group_tables.launches, 0, 0),
-            "build_group_split_tables": (ck.build_group_split_tables.launches, 0, 0),
-            "_project_group_cc": (ck._project_group_cc.launches, 0, 0),
-            "_backproject_group_cc": (ck._backproject_group_cc.launches, 0, 0)}
+            "build_group_split_tables": (ck.build_group_split_tables.launches, 0, 0)}
 
 
 def group_calls(ck, plan, tabs, f, p):
     """(fwd, adj) for check_kernels on a per-angle plan: fwd(g, cdt, impl)
     runs a per-angle forward implementation on the image batch f, adj(g,
     cdt, impl) an adjoint on p[g]; the wrappers get the group's trig tables
-    (``tabs[cdt][g]``: the bf16 route's, or the float32 split route's), the
-    CUDA-core adjoint the image size (the plain versions read it off pos)."""
+    (``tabs[cdt][g]``: the bf16 route's, or the float32 split route's) and
+    the adjoint the image size (the plain versions read it off pos)."""
     L, N = plan.meta["S_ext"], plan.meta["N"]
 
     def rows(g):
@@ -798,8 +777,6 @@ def group_calls(ck, plan, tabs, f, p):
     def adj(g, cdt, impl):
         if impl is ck.backproject_group:
             return impl(p[g], *rows(g), N, cdt, tables=tabs[cdt][g])
-        if impl is ck._backproject_group_cc:
-            return impl(p[g], *rows(g), N, cdt)
         return impl(p[g], *rows(g), cdt)
 
     return fwd, adj
@@ -817,41 +794,17 @@ def group_tables(ck, plan):
 
 
 @contextlib.contextmanager
-def pair_cc_route(ck):
-    """Send parallel.py's float32 pair calls to the CUDA-core kernels of
-    radon_pair.cu: the A/B baseline of the split-bf16 route for a whole
-    synthesis (the main path never takes it); bf16 calls keep their route."""
-    from pdunet_tpu_torch.ops.radon import parallel
-
-    saved = parallel.project_pair_group, parallel.backproject_pair_group
-
-    def fwd(f, *a, tables=None):
-        if a[-1] == torch.float32:
-            return ck._project_pair_cc(f, *a)
-        return saved[0](f, *a, tables=tables)
-
-    def adj(p, *a, tables=None):
-        if a[-1] == torch.float32:
-            return ck._backproject_pair_cc(p, *a)
-        return saved[1](p, *a, tables=tables)
-
-    parallel.project_pair_group, parallel.backproject_pair_group = fwd, adj
-    try:
-        yield
-    finally:
-        parallel.project_pair_group, parallel.backproject_pair_group = saved
-
-
-@contextlib.contextmanager
-def cc_route(ck):
-    """Send parallel.py's per-angle calls to the CUDA-core kernels whatever
-    their operand type: the A/B baseline of both tensor-core routes for a
-    whole recon or synthesis (the main path never takes it)."""
+def plain_route(ck):
+    """Send parallel.py's per-angle calls to their plain versions, run on
+    the card's tensors: the reference of a whole power iteration (the main
+    path never takes it)."""
     from pdunet_tpu_torch.ops.radon import parallel
 
     saved = parallel.project_group, parallel.backproject_group
-    parallel.project_group = lambda f, *a, tables=None: ck._project_group_cc(f, *a)
-    parallel.backproject_group = lambda p, *a, tables=None: ck._backproject_group_cc(p, *a)
+    parallel.project_group = lambda f, *a, tables=None: ck._project_group(f, *a)
+    # the plain adjoint reads N off pos: (..., contract_x, N, cdt) → (..., contract_x, cdt)
+    parallel.backproject_group = lambda p, *a, tables=None: ck._backproject_group(
+        p, *a[:-2], a[-1])
     try:
         yield
     finally:
@@ -906,12 +859,6 @@ def radial_phases(dev, card, gen):
     }
     errs = {}
     check_kernels(kernels, errs)
-    # the CUDA-core kernels, f32 and bf16 operands: the A/B baseline of both
-    # tensor-core routes in phase 8
-    check_kernels({"project_group CUDA-core": (fwd, ck._project_group_cc, ck._project_group),
-                   "backproject_group CUDA-core": (adj, ck._backproject_group_cc,
-                                                   ck._backproject_group)},
-                  errs)
     # the tensor-core kernels against the plain versions of their own tiling
     # and arithmetic, which read the same (card-built) tables: bf16, and the
     # float32 split route (hi/lo operands, three products)
@@ -1037,7 +984,7 @@ def radial_phases(dev, card, gen):
     # batch_from_images each run A + the DCF adjoint in f32 on the split
     # route (2 group calls per op per batch_from_images; its tables built
     # once per group of the f32 plan, at the first synthesis), recon_fn
-    # n_iters bf16 A and A†. The CUDA-core kernels never run.
+    # n_iters bf16 A and A†.
     n_iters = config.model.n_iters
     n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
     check(at_build["build_group_tables"][0] == 2 and counts["build_group_tables"][0] == 2,
@@ -1046,8 +993,6 @@ def radial_phases(dev, card, gen):
           and counts["build_group_split_tables"][0] == 2,
           "the per-angle split trig tables were not built exactly once per group, at the "
           "first synthesis")
-    check(counts["_project_group_cc"][0] == counts["_backproject_group_cc"][0] == 0,
-          "a CUDA-core per-angle kernel ran on the radial path")
     for name in ("project_group", "backproject_group"):
         tc_build = 2 * (n_power + 1)
         check(at_build[name] == (tc_build, tc_build, 0),
@@ -1146,15 +1091,14 @@ def radial_phases(dev, card, gen):
         return {"project_group": fwd_, "backproject_group": adj_}
 
     # B' = 8: the serving shape at batch 4; B' = 256: bench's batch 128
-    group_ops = {"project_group": (ck.project_group, ck._project_group_cc),
-                 "backproject_group": (ck.backproject_group, ck._backproject_group_cc)}
-    ab = route_ab(group_ops, group_inputs, group_mean_cost, lambda B_: (A_g, B_ * N, N, 2 * K),
-                  card, (Bp, 256), dev, gen)
-    # float32: the split-bf16 route against radon_group.cu's CUDA-core kernels,
-    # beside a full-f32 torch.matmul of stage 1's shape (TF32 off) as the yardstick
-    ab32 = route_ab(group_ops, group_inputs, group_mean_cost,
-                    lambda B_: (A_g, B_ * N, N, 2 * K), card, (Bp, 256), dev, gen,
-                    cdt=f32, bound=group_split_bound, key="split")
+    group_ops = {"project_group": ck.project_group, "backproject_group": ck.backproject_group}
+    ab = route_times(group_ops, group_inputs, group_mean_cost,
+                     lambda B_: (A_g, B_ * N, N, 2 * K), card, (Bp, 256), dev, gen)
+    # float32: the split-bf16 route, beside a full-f32 torch.matmul of stage
+    # 1's shape (TF32 off) as the yardstick
+    ab32 = route_times(group_ops, group_inputs, group_mean_cost,
+                       lambda B_: (A_g, B_ * N, N, 2 * K), card, (Bp, 256), dev, gen,
+                       cdt=f32, bound=group_split_bound, key="split")
     for e in entries:
         op = e["name"]
         fwd_op = op == "project_group"
@@ -1168,12 +1112,11 @@ def radial_phases(dev, card, gen):
         e["bound_ms_f32_fp32"], e["bound_by_f32_fp32"] = fp32_bound
         e["launches_tc"], e["launches_split"] = counts[op][1], counts[op][2]
         e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_group_split.cu"
-        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_group.cu"
         e["rel_err_f32_vs_tiled_split"] = max(v[0 if fwd_op else 1] for v in split_rel.values())
         e["path"] = "pdunet_radial (B' = 2 x batch real images per group call)"
         e["operand_dtype"] = ("bfloat16 on tensor cores; f32 keys *_f32: split-bf16 route on "
                               "tensor cores, bound_ms_f32 its bound, bound_ms_f32_fp32 the FP32 "
-                              "CUDA-core bound; *_cc_*: CUDA-core A/B baseline, radon_group.cu")
+                              "CUDA-core bound")
     group_args = (plan.pos_x, plan.shift_x, plan.spec, L)
     entries.append(table_entry(
         ck.build_group_tables, ck._group_tables, group_args, launches["build_group_tables"],
@@ -1213,58 +1156,42 @@ def radial_phases(dev, card, gen):
                     f"{op} {str(cdt).split('.')[1]} B={B_} group x", card)
         del calls
 
-    # the whole recon on each bf16 route, in turns, and the host's share
-    recon_turns = {}
-    for key in ("tc", "cc", "cc", "tc"):
-        with cc_route(ck) if key == "cc" else contextlib.nullcontext():
-            recon_turns.setdefault(key, []).append(
-                recon_rate(one_recon, B, card, f"{config.name} ({key} per-angle route)"))
-    recon_s = sum(recon_turns["tc"]) / 2
+    # the whole recon, and the host's share
+    recon_s = recon_rate(one_recon, B, card, config.name)
     enqueue_ms = host_ms(one_recon)
-    print(f"[time] {config.name} recon_fn at batch {B}: tensor-core route "
-          f"{recon_s * 1e3:.3f} ms, CUDA-core route {sum(recon_turns['cc']) / 2 * 1e3:.3f} ms "
-          f"per batch (turns {recon_turns}); host time to enqueue one recon "
+    print(f"[time] {config.name} recon_fn at batch {B}: host time to enqueue one recon "
           f"{enqueue_ms:.3f} ms ({card})")
-    # the synthesis (f32 A + DCF adjoint) at batch 4 and 128, on the split
-    # route and on the CUDA-core kernels, in turns
+    # the synthesis (f32 A + DCF adjoint) at batch 4 and 128 on the split route
     mag = random_phantom_batch(torch.Generator(device=dev).manual_seed(5), 128, N, nonneg=True,
                                device=dev)
     big = torch.polar(mag, torch.linspace(-1.0, 1.0, N, device=dev)[None, None, :] * mag)
     del mag
     synth = {}
     for B_, img in ((B, batch["image_c"]), (128, big)):
-        for key in ("split", "cc", "cc", "split"):
-            with cc_route(ck) if key == "cc" else contextlib.nullcontext():
-                synth.setdefault(f"{key}_b{B_}", []).append(cuda_ms(
-                    lambda: task.batch_from_images(img), iters=10 if B_ == B else 3))
-        turns = {k: v for k, v in synth.items() if k.endswith(f"_b{B_}")}
+        synth[f"split_b{B_}"] = cuda_ms(lambda: task.batch_from_images(img),
+                                        iters=10 if B_ == B else 3)
         print(f"[time] radial batch_from_images (f32 A + DCF adjoint) at batch {B_}: split "
-              f"route {sum(synth[f'split_b{B_}']) / 2:.4f} ms, CUDA-core route "
-              f"{sum(synth[f'cc_b{B_}']) / 2:.4f} ms (turns {turns}) ({card})")
+              f"route {synth[f'split_b{B_}']:.4f} ms ({card})")
     del big
     profile_recon(one_recon, card)
-    with cc_route(ck):
-        print("[profile] the same recon with the per-angle bf16 calls on the CUDA cores:")
-        profile_recon(one_recon, card)
 
-    # σ of build_task's power iteration on the bf16 operators, on each route
+    # σ of build_task's power iteration on the bf16 operators, on the
+    # tensor-core route and on the plain versions
     ops_bf16 = make_radial_ops(sparse, dtype=bf16, device=dev)
     sigmas = {}
-    for key in ("tc", "cc"):
-        with cc_route(ck) if key == "cc" else contextlib.nullcontext():
+    for key in ("tc", "plain"):
+        with plain_route(ck) if key == "plain" else contextlib.nullcontext():
             sigmas[key] = estimate_opnorm(ops_bf16.A, ops_bf16.At, (N, N), device=dev,
                                           is_complex=True)
-    sigma_rel = abs(sigmas["tc"] - sigmas["cc"]) / sigmas["cc"]
+    sigma_rel = abs(sigmas["tc"] - sigmas["plain"]) / sigmas["plain"]
     print(f"[check] radial sigma (power iteration, bf16 operators): tensor cores "
-          f"{sigmas['tc']:.6g}, CUDA cores {sigmas['cc']:.6g}, rel {sigma_rel:.3e} (tol 5e-3)")
+          f"{sigmas['tc']:.6g}, plain versions {sigmas['plain']:.6g}, rel {sigma_rel:.3e} "
+          f"(tol 5e-3)")
     check(sigma_rel <= TOL["bfloat16"], "radial sigma moved beyond the bf16 tolerance")
     stats = {"recon_slices_per_s": B / recon_s, "recon_ms_per_batch": recon_s * 1e3,
-             "synth_ms": sum(synth[f"split_b{B}"]) / 2,
-             "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
-             "batch_from_images_ms_turns": synth, "batch": B,
+             "synth_ms": synth[f"split_b{B}"], "batch_from_images_ms": synth, "batch": B,
              "psnr_mean": float(np.mean(all_ps)), "ssim_mean": float(np.mean(all_ss)),
              "adjoint_dot_rel": dot_rel, "adjoint_dot_rel_f32": dot_f32,
-             "recon_ms_turns": {k: [v * 1e3 for v in vs] for k, vs in recon_turns.items()},
              "host_enqueue_ms": enqueue_ms, "call_profile_ms": shares,
              "adjoint_split_sweep_b8": group_sweep,
              "split_adjoint_split_sweep_b8": group_split_sweep,
@@ -1281,12 +1208,6 @@ PROBE_REPLACES = {
     "project_group_packed": "scripts/pack_proto.py:102",
     "backproject_group_packed": "scripts/pack_proto.py:127",
 }
-#: the CUDA-core kernels of rows 5 and 6 (csrc/radon_proto.cu), the A/B
-#: baseline of their tensor-core ones: the probe scripts run them, no path may
-PROBE_CC = {"project_pair_group_doubling": "_project_pair_group_doubling_cc",
-            "project_pair_group_notrig": "_project_pair_group_notrig_cc",
-            "project_group_packed": "_project_group_packed_cc",
-            "backproject_group_packed": "_backproject_group_packed_cc"}
 #: the kernels of csrc/radon_proto_tc.cu; the first six are row 6's
 #: stage-1 / 1ᵀ products (bf16 with exact and doubling trig; split, exact)
 PROTO_TC_KERNELS = tuple(f"proto_tc_{op}{d}" for op in ("fwd", "adj") for d in ("", "_dbl")) + (
@@ -1357,8 +1278,7 @@ def probe_phases(dev, card, gen):
         records[name] = pack_proto.run(name, "cuda")
         print(f"[chip_smoke] pack_proto --plan {name}: {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
-    launches = {name: getattr(pk, name).launches
-                for name in (*PROBE_REPLACES, *PROBE_CC.values())}
+    launches = {name: getattr(pk, name).launches for name in PROBE_REPLACES}
     print(f"[chip_smoke] probe-script launches: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the probe scripts")
@@ -1414,45 +1334,17 @@ def probe_phases(dev, card, gen):
     }
     errs = {}
     check_kernels(kernels, errs)
-    # the CUDA-core kernels of rows 5 and 6, f32 and bf16 operands: the A/B baseline
-    check_kernels({f"{name} CUDA-core": (call, getattr(pk, PROBE_CC[name]), plain)
-                   for name, (call, _, plain) in kernels.items()}, errs)
     bf16, f32 = torch.bfloat16, torch.float32
     for g in "xy":
         # the packed kernels with exact trig in bf16 (the probe's like-with-like pair)
-        for label, kf, ka in (("tensor-core", pk.project_group_packed,
-                               pk.backproject_group_packed),
-                              ("CUDA-core", pk._project_group_packed_cc,
-                               pk._backproject_group_packed_cc)):
-            r = rel(kf(f, *rows(g), bf16, doubling=False),
-                    pk._project_group_packed(f, *rows(g), bf16, doubling=False))
-            ra = rel(ka(p[g], *rows(g), N, bf16, doubling=False),
-                     pk._backproject_group_packed(p[g], *rows(g), bf16, doubling=False))
-            print(f"[check] packed {label} exact-trig bf16 group {g}: fwd rel {r:.3e}, adj rel "
-                  f"{ra:.3e} (tol 5e-3)")
-            check(r <= TOL["bfloat16"] and ra <= TOL["bfloat16"],
-                  f"packed {label} exact-trig kernel")
-        # float32: the CUDA-core packed kernels are the per-angle operator of
-        # the CUDA-core kernels (radon_group.cu), the kernels they were built
-        # to A/B against
-        r = rel(pk._project_group_packed_cc(f, *rows(g), f32),
-                ck._project_group_cc(f, *rows(g), f32))
-        ra = rel(pk._backproject_group_packed_cc(p[g], *rows(g), N, f32),
-                 ck._backproject_group_cc(p[g], *rows(g), N, f32))
-        print(f"[check] packed CUDA-core vs the CUDA-core per-angle kernels, f32 group {g}: fwd "
-              f"rel {r:.3e}, adj rel {ra:.3e} (tol 1e-5)")
-        check(r <= 1e-5 and ra <= 1e-5, "packed kernels differ from the CUDA-core ones in f32")
-        # the CUDA-core packed pair is an exact transpose in float32
-        x = torch.randn(B, N, N, generator=gen, device=dev)
-        y = torch.randn(B, m[f"A_{g}"], S, generator=gen, device=dev)
-        lhs = torch.vdot(pk._project_group_packed_cc(x, *rows(g), f32).double().flatten(),
-                         y.double().flatten())
-        rhs = torch.vdot(x.double().flatten(),
-                         pk._backproject_group_packed_cc(y, *rows(g), N, f32).double().flatten())
-        dot_rel = float(abs(lhs - rhs) / abs(lhs))
-        print(f"[check] packed CUDA-core adjoint <Ax,y> vs <x,A^T y>, group {g}: rel "
-              f"{dot_rel:.3e} (tol 1e-5)")
-        check(dot_rel < 1e-5, f"packed CUDA-core adjoint test failed: {dot_rel}")
+        r = rel(pk.project_group_packed(f, *rows(g), bf16, doubling=False),
+                pk._project_group_packed(f, *rows(g), bf16, doubling=False))
+        ra = rel(pk.backproject_group_packed(p[g], *rows(g), N, bf16, doubling=False),
+                 pk._backproject_group_packed(p[g], *rows(g), bf16, doubling=False))
+        print(f"[check] packed tensor-core exact-trig bf16 group {g}: fwd rel {r:.3e}, adj rel "
+              f"{ra:.3e} (tol 5e-3)")
+        check(r <= TOL["bfloat16"] and ra <= TOL["bfloat16"],
+              "packed tensor-core exact-trig kernel")
 
     from pdunet_tpu_torch.configs import get_preset
     from pdunet_tpu_torch.geometry import ParallelGeometry, build_parallel_plan
@@ -1650,8 +1542,6 @@ def probe_phases(dev, card, gen):
                                 PROBE_REPLACES, mm, card,
                                 bound_f32=split_bound_ms(cost, stage1[kind]))
         e = entries[-1]
-        call = kern[0]
-        cc = getattr(pk, PROBE_CC[name])
         for cdt in (bf16, f32):
             sfx = "" if cdt == bf16 else "_f32"
             if row5_:
@@ -1664,10 +1554,6 @@ def probe_phases(dev, card, gen):
                 e[f"shipped_tc_ms{sfx}"] = mean_ms(
                     lambda g, c=cdt: (shipped(f, *rows(g), c, tables=tables[g][c]) if fwd_op else
                                       shipped(p[g], *rows(g), N, c, tables=tables[g][c])))
-            e[f"cc_ms{sfx}"] = mean_ms(lambda g, c=cdt: call(g, c, cc))
-        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_proto.cu"
-        e["replaces_cc"] = PROBE_REPLACES[name]
-        e["launches_cc"] = launches[PROBE_CC[name]]
         if row5_:
             e["checks"] = {k.split("/", 1)[1]: v for k, v in row5.items()
                            if k.startswith(name + "/")}
@@ -1678,11 +1564,10 @@ def probe_phases(dev, card, gen):
             e["operand_dtype"] = ("bfloat16 on tensor cores (T̂ and both members' φ made on "
                                   "chip); *_f32: split-bf16 on tensor cores; shipped_tc_ms: "
                                   "project_pair_group from the trig tables (radon_pair_tc.cu / "
-                                  "radon_pair_split.cu); cc_ms: the CUDA-core row-5 kernels")
+                                  "radon_pair_split.cu)")
             print(f"[time] {name}: tensor-core {e['ms']:.4f} / {e['ms_f32']:.4f} ms (bf16 / "
                   f"f32); shipped tensor-core {e['shipped_tc_ms']:.4f} / "
-                  f"{e['shipped_tc_ms_f32']:.4f}; CUDA-core {e['cc_ms']:.4f} / "
-                  f"{e['cc_ms_f32']:.4f} (B={B}, mean of x and y) ({card})")
+                  f"{e['shipped_tc_ms_f32']:.4f} (B={B}, mean of x and y) ({card})")
             continue
         e["exact_trig_ms"] = mean_ms(
             lambda g: (pk.project_group_packed(f, *rows(g), bf16, doubling=False) if fwd_op
@@ -1696,12 +1581,11 @@ def probe_phases(dev, card, gen):
         e["table_build_ms"] = {pname: rec.get("table_build_ms") for pname, rec in records.items()}
         e["operand_dtype"] = ("bfloat16 (doubling trig; exact_trig_ms: exact) on tensor cores; "
                               "*_f32: split-bf16 on tensor cores, exact trig; shipped_tc_ms: "
-                              "project_group / backproject_group from the trig tables; cc_ms: "
-                              "the CUDA-core packed kernels")
+                              "project_group / backproject_group from the trig tables")
         print(f"[time] {name}: packed-tc {e['ms']:.4f} / {e['ms_f32']:.4f} ms (bf16 doubling / "
               f"f32), exact trig {e['exact_trig_ms']:.4f}; shipped tensor-core "
-              f"{e['shipped_tc_ms']:.4f} / {e['shipped_tc_ms_f32']:.4f}; CUDA-core packed "
-              f"{e['cc_ms']:.4f} / {e['cc_ms_f32']:.4f} (B={B}, mean of x and y) ({card})")
+              f"{e['shipped_tc_ms']:.4f} / {e['shipped_tc_ms_f32']:.4f} (B={B}, mean of x and "
+              f"y) ({card})")
     del tables, pair_tabs
     for e in entries:
         e["path"] = ("probe scripts (pdunet_tpu_torch.scripts.trig_proto / pack_proto), "
@@ -1737,7 +1621,7 @@ def bench_phase(card):
     check(n_fwd > 0 and n_adj > 0, "bench's headline did not run the pair kernels")
     check(ck.project_group.launches == ck.backproject_group.launches == 0,
           "a per-angle kernel ran on bench's headline path")
-    check(all(getattr(pk, n).launches == 0 for n in (*PROBE_REPLACES, *PROBE_CC.values())),
+    check(all(getattr(pk, n).launches == 0 for n in PROBE_REPLACES),
           "a probe kernel ran on bench's headline path")
     return row
 
@@ -1756,13 +1640,11 @@ def _route_counts(ck, fwd, adj):
 
 
 def _other_launches(ck, pk, radial):
-    """Launches of every kernel the path must not run: the CUDA-core A/B
-    baselines, the probes, and the other geometry's projector."""
-    other = [ck._project_pair_cc, ck._backproject_pair_cc, ck._project_group_cc,
-             ck._backproject_group_cc]
-    other += ([ck.project_pair_group, ck.backproject_pair_group] if radial
-              else [ck.project_group, ck.backproject_group])
-    other += [getattr(pk, n) for n in (*PROBE_REPLACES, *PROBE_CC.values())]
+    """Launches of every kernel the path must not run: the probes and the
+    other geometry's projector."""
+    other = ([ck.project_pair_group, ck.backproject_pair_group] if radial
+             else [ck.project_group, ck.backproject_group])
+    other += [getattr(pk, n) for n in PROBE_REPLACES]
     return sum(fn.launches for fn in other)
 
 
@@ -1867,7 +1749,7 @@ def train_phases(dev, card):
                   and counts[op]["all"] == sum(want[op].values()),
                   f"{name} train(): {op} launches {counts[op]}, expected {want[op]}")
         check(_other_launches(ck, pk, radial) == 0,
-              f"{name}: a CUDA-core, probe or other-geometry kernel ran in train()")
+              f"{name}: a probe or other-geometry kernel ran in train()")
 
         # one step's launches, after a warm step
         task = res.task
@@ -1893,7 +1775,7 @@ def train_phases(dev, card):
               + ck.build_pair_split_tables.launches + ck.build_group_split_tables.launches == 0,
               f"{name}: trig tables rebuilt in a step")
         check(_other_launches(ck, pk, radial) == 0,
-              f"{name}: a CUDA-core, probe or other-geometry kernel ran in a step")
+              f"{name}: a probe or other-geometry kernel ran in a step")
 
         stats[name] = {"train_steps": n_steps, "losses": losses, "grad_norms": norms,
                        "launches_per_step": per_step,
@@ -2213,7 +2095,7 @@ def slice_b_phases(dev, card):
               and ck.build_pair_split_tables.launches == 2,
               f"{name}: trig tables not built once per plan and group")
         check(_other_launches(ck, pk, radial=False) == 0,
-              f"{name}: a CUDA-core, per-angle or probe kernel ran on the serving path")
+              f"{name}: a per-angle or probe kernel ran on the serving path")
         st["serve_launches"] = served
 
         def one_recon():
@@ -2280,7 +2162,7 @@ def slice_b_phases(dev, card):
                        _times(n_val, _plus(want["synth"], want["recon"])))
         check(ran == expect, f"{name} train(): launches {ran}, expected {expect}")
         check(_other_launches(ck, pk, radial=False) == 0,
-              f"{name}: a CUDA-core, per-angle or probe kernel ran in train()")
+              f"{name}: a per-angle or probe kernel ran in train()")
         task = res.task
         state = loop.build_state(task, n_steps=100)
         step = loop.make_train_step(task)
@@ -2695,7 +2577,7 @@ def preset_path_phase(name, dev, card, counts_fn, want, radial, small_over, gold
         check((bands_build, bands_serve) == (FAN_BAND_BUILDS["build"], FAN_BAND_BUILDS["serve"]),
               f"{name}: band builds {bands_build} / {bands_serve}, expected {FAN_BAND_BUILDS}")
     check(_other_launches(ck, pk, radial=radial) == 0,
-          f"{name}: a CUDA-core, other-family or probe kernel ran on the serving path")
+          f"{name}: an other-family or probe kernel ran on the serving path")
     st.update(serve_launches=served, band_builds=bands_serve)
 
     def one_recon():
@@ -2757,7 +2639,7 @@ def preset_path_phase(name, dev, card, counts_fn, want, radial, small_over, gold
                    _times(n_val, _plus(want["synth"], want["recon"])))
     check(ran == expect, f"{name} train(): launches {ran}, expected {expect}")
     check(_other_launches(ck, pk, radial=radial) == 0,
-          f"{name}: a CUDA-core, other-family or probe kernel ran in train()")
+          f"{name}: an other-family or probe kernel ran in train()")
     task = res.task
     state = loop.build_state(task, n_steps=100)
     step = loop.make_train_step(task)
@@ -2978,7 +2860,7 @@ def file_backed_phase(name, dev, card, tmp, store, score_store):
           f"{name}: file-backed losses {losses}")
     check(ran == expect, f"{name} file-backed train: launches {ran}, expected {expect}")
     check(_other_launches(ck, pk, radial=radial) == 0,
-          f"{name}: a CUDA-core, other-family or probe kernel ran in file-backed training")
+          f"{name}: an other-family or probe kernel ran in file-backed training")
     check(reads.count(("val", False)) == 1 and reads.count(("train", True)) == 1
           and ("train", False) not in reads,
           f"{name}: validation did not read whole batches of the val split: {reads}")
@@ -3968,13 +3850,6 @@ def main():
     }
     errs = {}
     check_kernels(kernels, errs)
-    # the CUDA-core kernels, f32 and bf16 operands: the A/B baseline of
-    # both tensor-core routes in phase 5
-    check_kernels({"project_pair_group CUDA-core": (fwd, ck._project_pair_cc,
-                                                    ck._project_pair_group),
-                   "backproject_pair_group CUDA-core": (adj, ck._backproject_pair_cc,
-                                                        ck._backproject_pair_group)},
-                  errs)
     # the tensor-core kernels against the plain versions of their own tiling
     # and arithmetic, which read the same (card-built) tables: bf16, and the
     # float32 split route (hi/lo operands, three products)
@@ -4085,7 +3960,7 @@ def main():
     # one bf16 table build per group. Per batch: make_batch and
     # batch_from_images each run A + FBP (one A†) in f32 on the split route
     # (its tables built once per group, at the first batch), recon_fn
-    # n_iters bf16 A and A†. The CUDA-core kernels never run.
+    # n_iters bf16 A and A†.
     n_iters = config.model.n_iters
     n_power = inspect.signature(estimate_opnorm).parameters["n_iters"].default
     print(f"[chip_smoke] main-path launches (total, bf16 tensor-core, split): after "
@@ -4095,8 +3970,6 @@ def main():
     check(at_build["build_pair_split_tables"][0] == 0
           and counts["build_pair_split_tables"][0] == 2,
           "the split trig tables were not built exactly once per group, at the first batch")
-    check(counts["_project_pair_cc"][0] == counts["_backproject_pair_cc"][0] == 0,
-          "a CUDA-core pair kernel ran on the main path")
     for name in ("project_pair_group", "backproject_pair_group"):
         tc_build = 2 * (n_power + 1)
         check(at_build[name] == (tc_build, tc_build, 0),
@@ -4186,17 +4059,18 @@ def main():
             {g: torch.randn(B_, 2 * m[f"P_{g}"], S, generator=gen, device=dev) for g in "xy"})
         return {"project_pair_group": fwd_, "backproject_pair_group": adj_}
 
-    pair_ops = {"project_pair_group": (ck.project_pair_group, ck._project_pair_cc),
-                "backproject_pair_group": (ck.backproject_pair_group, ck._backproject_pair_cc)}
-    ab = route_ab(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
-                  lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen)
-    # float32: the split-bf16 route against radon_pair.cu's CUDA-core kernels,
-    # beside a full-f32 torch.matmul of stage 1's shape (TF32 off) as the yardstick
-    ab32 = route_ab(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
-                    lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen,
-                    cdt=torch.float32,
-                    bound=lambda B_: split_bound_ms(pair_cost(B_, N, P, K, S), 4 * B_ * P * N * N * K),
-                    key="split")
+    pair_ops = {"project_pair_group": ck.project_pair_group,
+                "backproject_pair_group": ck.backproject_pair_group}
+    ab = route_times(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
+                     lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen)
+    # float32: the split-bf16 route, beside a full-f32 torch.matmul of stage
+    # 1's shape (TF32 off) as the yardstick
+    ab32 = route_times(pair_ops, pair_inputs, lambda B_: pair_cost(B_, N, P, K, S),
+                       lambda B_: (P, B_ * N, N, 2 * K), card, (B, 256), dev, gen,
+                       cdt=torch.float32,
+                       bound=lambda B_: split_bound_ms(pair_cost(B_, N, P, K, S),
+                                                       4 * B_ * P * N * N * K),
+                       key="split")
     # the adjoints' slice counts at B = 4 (pair_adjoint_splits picks
     # ⌊n_sms / tiles⌋, capped at P): bf16 (128 x 256 tiles), split (128 x 128)
     pair_sweep = split_sweep(
@@ -4229,14 +4103,13 @@ def main():
         e["bound_ms_f32_fp32"], e["bound_by_f32_fp32"] = fp32_bound
         e["launches_tc"], e["launches_split"] = counts[op][1], counts[op][2]
         e["source_f32"] = "pdunet_tpu_torch/ops/radon/csrc/radon_pair_split.cu"
-        e["source_cc"] = "pdunet_tpu_torch/ops/radon/csrc/radon_pair.cu"
         fwd_op = op == "project_pair_group"
         e["hgmma"] = hgmma["pair_tc_fwd" if fwd_op else "pair_tc_adj"]
         e["hgmma_f32"] = hgmma["pair_split_fwd" if fwd_op else "pair_split_adj"]
         e["rel_err_f32_vs_tiled_split"] = max(v[0 if fwd_op else 1] for v in split_rel.values())
         e["operand_dtype"] = ("bfloat16 on tensor cores; f32 keys *_f32: split-bf16 route on "
                               "tensor cores, bound_ms_f32 its bound, bound_ms_f32_fp32 the FP32 "
-                              "CUDA-core bound; *_cc_*: CUDA-core A/B baseline, radon_pair.cu")
+                              "CUDA-core bound")
     entries.append(table_entry(
         ck.build_pair_tables, ck._pair_tables, (*pair_rows(plan, "x")[:3], plan.spec, L),
         launches["build_pair_tables"], "pdunet_tpu/ops/radon/pallas_kernels.py:167",
@@ -4252,19 +4125,14 @@ def main():
             task.recon_fn(task.model, batch)
 
     recon_s = recon_rate(one_recon, B, card, config.name)
-    # the synthesis (f32 A + FBP) at batch 4 and 256, on the split route and
-    # on the CUDA-core kernels, in turns
+    # the synthesis (f32 A + FBP) at batch 4 and 256 on the split route
     big = random_phantom_batch(torch.Generator(device=dev).manual_seed(5), 256, N, device=dev)
     synth = {}
     for B_, img in ((B, batch["image"]), (256, big)):
-        for key in ("split", "cc", "cc", "split"):
-            with pair_cc_route(ck) if key == "cc" else contextlib.nullcontext():
-                synth.setdefault(f"{key}_b{B_}", []).append(cuda_ms(
-                    lambda: task.batch_from_images(img), iters=10 if B_ == B else 3))
-        turns = {k: v for k, v in synth.items() if k.endswith(f"_b{B_}")}
+        synth[f"split_b{B_}"] = cuda_ms(lambda: task.batch_from_images(img),
+                                        iters=10 if B_ == B else 3)
         print(f"[time] batch_from_images (f32 A + FBP) at batch {B_}: split route "
-              f"{sum(synth[f'split_b{B_}']) / 2:.4f} ms, CUDA-core route "
-              f"{sum(synth[f'cc_b{B_}']) / 2:.4f} ms (turns {turns}) ({card})")
+              f"{synth[f'split_b{B_}']:.4f} ms ({card})")
     del big
     profile_recon(one_recon, card)
 
@@ -4390,7 +4258,7 @@ def main():
                       "pair_adjoint_split_sweep_b4": pair_sweep,
                       "pair_split_adjoint_split_sweep_b4": split_sweep_b4,
                       "pair_split_call_profile_ms": split_shares,
-                      "batch_from_images_ms": {k: sum(v) / len(v) for k, v in synth.items()},
+                      "batch_from_images_ms": synth,
                       "adjoint_dot_rel_f32": adj_rel, "tf32_default_small_rel_cpu": tf32_rel,
                       "train": train_stats, "dense_plan": dense, "slice_b": slice_b,
                       "slice_c": slice_c, "data_path": data_paths, "gridding": gridding,

@@ -33,8 +33,8 @@ __all__ = ["SOURCES", "build", "build_all", "load_library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("radon_pair", "radon_pair_tc", "radon_pair_split", "radon_group", "radon_group_tc",
-           "radon_group_split", "radon_proto", "radon_proto_tc", "radon_pair_proto_tc")
+SOURCES = ("radon_pair_tc", "radon_pair_split", "radon_group_tc", "radon_group_split",
+           "radon_proto_tc", "radon_pair_proto_tc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -2,8 +2,7 @@
 // Hopper's tensor cores (sm_90a): the split-bf16 route that project_group /
 // backproject_group take for cdt = float32 on a CUDA tensor (the radial
 // path's synthesis A and DCF adjoint, and every f32 A and A† on a plan whose
-// angles do not pair). The CUDA-core kernels of radon_group.cu, which this
-// route replaces, stay as the A/B baseline that no dispatch reaches.
+// angles do not pair).
 //
 // Replaces the float32 instantiation of the Pallas TPU kernels in
 // pdunet_tpu/ops/radon/pallas_kernels.py:
@@ -15,9 +14,9 @@
 // _group_forward_tc / _group_adjoint_tc with split tables for this file's
 // arithmetic and order).
 //
-// The function is radon_group.cu's (per angle a: ĝ = F·T̂_a, Ŝ = Σ_r ĝ·φ_a,
-// out = Re Ŝ·Wc − Im Ŝ·Ws, and its exact transpose) to the f32 contract
-// (1e-5 relative). It is radon_pair_split.cu's split machinery with one
+// The function is radon_group_tc.cu's (per angle a: ĝ = F·T̂_a,
+// Ŝ = Σ_r ĝ·φ_a, out = Re Ŝ·Wc − Im Ŝ·Ws, and its exact transpose) to the
+// f32 contract (1e-5 relative). It is radon_pair_split.cu's split machinery with one
 // member per row group (M = 1: no sgn, no msk), as radon_group_tc.cu is the
 // one-member instantiation of the bf16 route: stage 1 and 1ᵀ as three bf16
 // wgmma products per 16-deep step (hi·hi, hi·lo, lo·hi of operands split as
@@ -26,15 +25,15 @@
 // fourier-slice plan has K = L/2 and a ±1 selection for W, and stage 3
 // stays the dense product.
 //
-// What bounds the CUDA-core kernels of radon_group.cu on an H100, and what
+// What bounds a per-angle kernel on an H100's CUDA cores in f32, and what
 // this design does about it:
 //  * FP32 CUDA-core products (≈ 20-25 TFLOP/s, under a third of the FP32
 //    peak: the forward's 4x2 register tile is paced by shared-memory loads).
 //    Stage 1 and 1ᵀ run on the tensor cores as the split products above.
 //  * Trig regenerated per tile and image (the adjoint remakes h and T̂ with
 //    precise sincosf for every 32-wide K chunk). It comes from per-plan
-//    tables built once on the card by group_split_tables with the CUDA-core
-//    kernels' argument rounding and precise sincosf: T̂ as hi and lo bf16
+//    tables built once on the card by group_split_tables with the plain
+//    builder's argument rounding and precise sincosf: T̂ as hi and lo bf16
 //    planes, φ in f32 (it feeds stages 2 and 2ᵀ on the CUDA cores).
 //  * The adjoint's angle loop over 64x64 output tiles. Its output tiles are
 //    128 x 128 (the hi + lo T̂ and h and the f32 φ fill shared memory at 128

@@ -1,7 +1,7 @@
 // Per-angle parallel-beam projector kernels on Hopper's tensor cores
 // (sm_90a, bf16 operands): the route that project_group / backproject_group
-// take for cdt = bfloat16 on a CUDA tensor. The float32 route stays on the
-// CUDA-core kernels of radon_group.cu.
+// take for cdt = bfloat16 on a CUDA tensor. The float32 route runs the
+// split-bf16 kernels of radon_group_split.cu.
 //
 // Replaces the bf16 instantiation of the Pallas TPU kernels in
 // pdunet_tpu/ops/radon/pallas_kernels.py:
@@ -12,8 +12,8 @@
 // (_project_group / _backproject_group; _group_tables for the tables,
 // _group_forward_tc / _group_adjoint_tc for this file's tiling).
 //
-// The function is radon_group.cu's (per angle a: ĝ = F·T̂_a, Ŝ = Σ_r ĝ·φ_a,
-// out = Re Ŝ·Wc − Im Ŝ·Ws, and its exact transpose): the mirror-pair
+// The function (per angle a: ĝ = F·T̂_a, Ŝ = Σ_r ĝ·φ_a,
+// out = Re Ŝ·Wc − Im Ŝ·Ws, and its exact transpose) is the mirror-pair
 // function of radon_pair_tc.cu with one member, no sgn and no msk. So the
 // kernels are radon_tc.cuh's, instantiated with M = 1 member per row group
 // (one angle), from per-plan tables (2, A, Np, 2Kp) bf16 — T̂, φ — with
@@ -21,15 +21,15 @@
 // caller (Wc's shape): the radial fourier-slice plan has K = L/2 and a ±1
 // selection matrix for W, and stage 3 stays the dense product.
 //
-// What bounds the CUDA-core kernels of radon_group.cu on an H100 in bf16,
-// and what this design does about it:
+// What bounds a per-angle kernel on an H100's CUDA cores in bf16, and what
+// this design does about it:
 //  * FP32 CUDA-core products (≈ 25 TFLOP/s achieved, 0.82 of the radial
 //    recon's device time). Stage 1 and stage 1ᵀ are wgmma bf16 products
 //    with f32 accumulators (m64n128k16 forward, m64n256k16 adjoint), operands
 //    in 128-byte-swizzled shared memory, staged by cp.async rings.
 //  * Trig regenerated per tile and image. It comes from the tables, built
-//    once per plan and group on the card by group_tc_tables with the
-//    CUDA-core kernels' argument rounding and precise sincosf.
+//    once per plan and group on the card by group_tc_tables with the plain
+//    builder's argument rounding and precise sincosf.
 //  * An angle loop of 64x64 output tiles in the adjoint. Its output tiles
 //    are (128 image rows) x (256 image columns); its depth, the angles'
 //    64-deep chunks of (k, re/im), is split into G slices

@@ -1,8 +1,7 @@
 // The mirror-pair trig probe kernels on Hopper's tensor cores (sm_90a), with
 // T̂ and both members' φ made on chip: the route that
 // project_pair_group_doubling / project_pair_group_notrig take on a CUDA
-// tensor. The CUDA-core probe kernels of radon_proto.cu stay as the A/B
-// baseline (_project_pair_group_doubling_cc / _project_pair_group_notrig_cc).
+// tensor.
 //
 // Replaces the Pallas TPU kernel of the JAX package's probe script:
 //   pair_proto_{tc,split}_fwd_dbl    <- scripts/trig_proto.py::call_pair_fwd

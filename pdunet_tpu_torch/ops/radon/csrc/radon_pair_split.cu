@@ -1,9 +1,7 @@
 // Mirror-pair parallel-beam projector kernels for float32 operands on
 // Hopper's tensor cores (sm_90a): the split-bf16 route that
 // project_pair_group / backproject_pair_group take for cdt = float32 on a
-// CUDA tensor (the synthesis A and the FBP's A† of the serving path). The
-// CUDA-core kernels of radon_pair.cu, which this route replaces, stay as
-// the A/B baseline that no dispatch reaches.
+// CUDA tensor (the synthesis A and the FBP's A† of the serving path).
 //
 // Replaces the float32 instantiation of the Pallas TPU kernels in
 // pdunet_tpu/ops/radon/pallas_kernels.py:
@@ -19,8 +17,8 @@
 // stage 1 ĝ = F·T̂, stage 2 Ŝ_m = Σ_r ĝ·φ_m, stage 3 p = Ŝ_re·Wc − Ŝ_im·Ws,
 // and its exact transpose, to the f32 contract (1e-5 relative).
 //
-// What bounds the CUDA-core kernels of radon_pair.cu on an H100, and what
-// this design does about it:
+// What bounds a mirror-pair kernel on an H100's CUDA cores in f32, and
+// what this design does about it:
 //  * FP32 CUDA-core products: the forward's 4x2 register tile is paced by
 //    shared-memory loads (≈ 16 TFLOP/s, 24% of the FP32 peak). One bf16 or
 //    TF32 product keeps too few digits for 1e-5, so stage 1 and 1ᵀ run as

@@ -12,7 +12,7 @@
 // (_project_pair_group / _backproject_pair_group; _pair_tables for the
 // tables, _pair_forward_tc / _pair_adjoint_tc for this file's tiling).
 //
-// The function (notation of radon_pair.cu): per pair p of one group,
+// The function: per pair p of one group,
 //   ĝ[r, k]  = Σ_c F[r, c] T̂_p[c, k]                       (stage 1)
 //   Ŝ_m[k]   = Σ_r ĝ_m[r, k] φ_m[p, r, k], ĝ_b = (gr, sgn·gi) (stage 2)
 //   out[2p+m, s] = Σ_k Re Ŝ_m Wc[k, s] − Im Ŝ_m Ws[k, s]      (stage 3)
@@ -20,7 +20,7 @@
 // p), T̂, φ, W and Ŝ (or h) are rounded to bf16, every sum is f32. That is
 // the contract of wgmma with f32 accumulators, so the products run there.
 //
-// What bounds the CUDA-core kernels of radon_pair.cu on an H100 in bf16, and
+// What bounds a mirror-pair kernel on an H100's CUDA cores in bf16, and
 // what this design does about it:
 //  * FP32 CUDA-core products (16-25 TFLOP/s). Stage 1 and stage 1ᵀ are
 //    wgmma.m64nNk16 bf16 products with f32 accumulators, both operands in

@@ -1,8 +1,6 @@
 // The packed per-angle probe kernels on Hopper's tensor cores (sm_90a),
 // with T̂ and φ made on chip: the route that project_group_packed /
-// backproject_group_packed take on a CUDA tensor. The CUDA-core probe
-// kernels of radon_proto.cu stay as the A/B baseline
-// (_project_group_packed_cc / _backproject_group_packed_cc).
+// backproject_group_packed take on a CUDA tensor.
 //
 // Replaces the Pallas TPU kernels of the JAX package's probe script:
 //   proto_tc_fwd{,_dbl}, proto_split_fwd <- scripts/pack_proto.py::call_fwd

@@ -6,7 +6,7 @@
 // bodies below) and its C entry points; the notes on what each replaces and
 // what bounds it are there.
 //
-// The function (notation of radon_pair.cu / radon_group.cu): per row group g
+// The function: per row group g
 // (a pair, or an angle) of one angle group, with members m < M,
 //   ĝ[r, k]     = Σ_c F[r, c] T̂_g[c, k]                        (stage 1)
 //   Ŝ_m[k]      = Σ_r ĝ_m[r, k] φ_m[g, r, k], ĝ_1 = (gr, sgn·gi) (stage 2)

@@ -11,8 +11,7 @@ Two families replace the Pallas kernels of
   plan and group; float32 operands run the split-bf16 kernels of
   ``csrc/radon_pair_split.cu`` (three bf16 products of hi and lo parts per
   step, f32 sums), which read :func:`build_pair_split_tables`' tables (the
-  caller, ``parallel.py``, owns and passes both). The CUDA-core kernels of
-  ``csrc/radon_pair.cu`` stay as an A/B baseline that no dispatch reaches;
+  caller, ``parallel.py``, owns and passes both);
 * per-angle, ``project_group`` / ``backproject_group``
   (``project_group_pallas`` / ``backproject_group_pallas``), for plans whose
   angles do not pair (golden-angle spokes, the radial fourier-slice NUFFT),
@@ -21,8 +20,7 @@ Two families replace the Pallas kernels of
   ``csrc/radon_group_tc.cu``, which read the tables of
   :func:`build_group_tables`; float32 operands the split-bf16 kernels of
   ``csrc/radon_group_split.cu``, which read :func:`build_group_split_tables`'
-  tables. The CUDA-core kernels of ``csrc/radon_group.cu`` stay as an A/B
-  baseline that no dispatch reaches.
+  tables.
 
 For a CUDA tensor each wrapper launches its hand-written kernel (and raises
 if it cannot); for a CPU tensor it runs the plain version below, which is
@@ -36,11 +34,9 @@ rounded to bf16 where the twin casts them, and every sum accumulates in f32.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, its
 bf16 tensor-core launches in ``.launches_tc`` and its split-bf16 launches
-in ``.launches_split``; the CUDA-core functions (``_project_pair_cc``,
-``_project_group_cc``, ...) count theirs, and the table builders their
-builds. A CPU call does not count. The wrappers' and the table builders'
-counters are registered with ``utils/trace.py``, whose root spans keep
-their change.
+in ``.launches_split``, and the table builders their builds. A CPU call
+does not count. These counters are registered with ``utils/trace.py``,
+whose root spans keep their change.
 """
 
 from __future__ import annotations
@@ -439,16 +435,12 @@ _F = ctypes.c_float
 # C entry point → argument types; "radon_<family>_<op>" lives in
 # csrc/radon_<family>.cu
 _ARGTYPES = {
-    "radon_pair_project": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
-    "radon_pair_backproject": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
     "radon_pair_tc_tables": [_P] * 5 + [_I] * 5 + [_F, _P],
     "radon_pair_tc_project": [_P] * 8 + [_I] * 8 + [_P],
     "radon_pair_tc_backproject": [_P] * 9 + [_I] * 9 + [_P],
     "radon_pair_split_tables": [_P] * 6 + [_I] * 5 + [_F, _P],
     "radon_pair_split_project": [_P] * 9 + [_I] * 8 + [_P],
     "radon_pair_split_backproject": [_P] * 10 + [_I] * 9 + [_P],
-    "radon_group_project": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
-    "radon_group_backproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     "radon_group_tc_tables": [_P] * 4 + [_I] * 5 + [_F, _P],
     "radon_group_tc_project": [_P] * 9 + [_I] * 9 + [_P],
     "radon_group_tc_backproject": [_P] * 9 + [_I] * 10 + [_P],
@@ -568,60 +560,14 @@ def _launch(name, *args):
     _raise_on(_fn(name)(*args, torch.cuda.current_stream().cuda_stream), name)
 
 
-def _project_pair_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L, contract_x: bool, cdt):
-    """The CUDA-core kernel of ``csrc/radon_pair.cu``, float32 or bf16
-    operands: the A/B baseline of both tensor-core routes of
-    :func:`project_pair_group` (``chip_smoke.py``,
-    ``scripts/trig_proto.py``), which no dispatch reaches."""
-    K, S = Wc.shape
-    _check_dispatch(f, L, K)
-    B, N, _ = f.shape
-    P = pos.shape[0]
-    dev = f.device
-    _check("f", f, (B, N, N), dev)
-    _check_pair_plan(pos, sha, shb, sgn, None, spec, Wc, Ws, P, N, K, S, dev)
-    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("radon_pair_project",
-                f.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
-                sgn.data_ptr(), spec.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
-                shat.data_ptr(), out.data_ptr(), B, N, P, K, S, 2.0 * math.pi / L,
-                int(contract_x), _compute_flag(cdt))
-    _project_pair_cc.launches += 1
-    return out
-
-
-def _backproject_pair_cc(p, pos, sha, shb, sgn, msk, spec, Wc, Ws, L, contract_x: bool,
-                         N: int, cdt):
-    """The CUDA-core adjoint of ``csrc/radon_pair.cu`` (see
-    :func:`_project_pair_cc`)."""
-    K, S = Wc.shape
-    _check_dispatch(p, L, K)
-    B = p.shape[0]
-    P = pos.shape[0]
-    dev = p.device
-    _check("p", p, (B, 2 * P, S), dev)
-    _check_pair_plan(pos, sha, shb, sgn, msk, spec, Wc, Ws, P, N, K, S, dev)
-    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, P, 2, K, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("radon_pair_backproject",
-                p.data_ptr(), pos.data_ptr(), sha.data_ptr(), shb.data_ptr(),
-                sgn.data_ptr(), msk.data_ptr(), spec.data_ptr(), Wc.data_ptr(),
-                Ws.data_ptr(), shat.data_ptr(), out.data_ptr(), B, N, P, K, S,
-                2.0 * math.pi / L, int(contract_x), _compute_flag(cdt))
-    _backproject_pair_cc.launches += 1
-    return out
-
-
 def build_pair_tables(pos, sha, shb, spec, L):
     """The tensor-core route's trig tables of one pair group: (3, P, Np, 2Kp)
     bf16, [T̂, φ_a, φ_b] with (re, im) interleaved along the frequency axis,
     Np = 128·⌈N/128⌉, 2Kp = 128·⌈2K/128⌉, zero-padded (layout of
     :func:`_pair_tables`). CPU tensors run :func:`_pair_tables`; CUDA
     tensors launch the kernel of ``csrc/radon_pair_tc.cu``, which forms each
-    value with the CUDA-core kernels' arithmetic."""
+    value as the plain builder does (its argument rounding, precise
+    sincosf)."""
     if pos.device.type == "cpu":
         return _pair_tables(pos, sha, shb, spec, L)
     _check_device(pos)
@@ -646,8 +592,8 @@ def build_pair_split_tables(pos, sha, shb, spec, L):
     (re, im) interleaved along the frequency axis and zero-padded as in
     :func:`build_pair_tables` (layout of :func:`_pair_split_tables`). CPU
     tensors run :func:`_pair_split_tables`; CUDA tensors launch the kernel of
-    ``csrc/radon_pair_split.cu``, which forms each value with the CUDA-core
-    kernels' arithmetic."""
+    ``csrc/radon_pair_split.cu``, which forms each value as the plain
+    builder does."""
     if pos.device.type == "cpu":
         return _pair_split_tables(pos, sha, shb, spec, L)
     _check_device(pos)
@@ -778,76 +724,14 @@ def _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev):
     _check("Ws", Ws, (K, S), dev)
 
 
-def _project_group_cc(f, pos, shift, spec, Wc, Ws, L, contract_x: bool, cdt):
-    """The CUDA-core kernel of ``csrc/radon_group.cu``, float32 or bf16
-    operands: the A/B baseline of both tensor-core routes of
-    :func:`project_group` (``chip_smoke.py``, ``scripts/pack_proto.py``),
-    which no dispatch reaches. K and S are read off ``Wc``."""
-    _check_device(f)
-    bf16 = _compute_flag(cdt)
-    K, S = Wc.shape
-    B, N, _ = f.shape
-    A = pos.shape[0]
-    dev = f.device
-    _check("f", f, (B, N, N), dev)
-    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
-    out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("radon_group_project",
-                f.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
-                Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(), out.data_ptr(),
-                B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
-    _project_group_cc.launches += 1
-    return out
-
-
-#: adjoint output tile edge of csrc/radon_group.cu (GR_AD_T)
-_GROUP_ADJ_TILE = 64
-
-
-def adjoint_splits(B: int, N: int, A: int, n_sms: int) -> int:
-    """How many angle slices the per-angle CUDA-core adjoint splits its
-    angle loop into, so that about four blocks per SM are in flight; each
-    slice writes a partial image and a second pass sums them in a fixed
-    order."""
-    blocks = B * math.ceil(N / _GROUP_ADJ_TILE) ** 2
-    return max(1, min(A, math.ceil(4 * n_sms / blocks)))
-
-
-def _backproject_group_cc(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int, cdt):
-    """The CUDA-core adjoint of ``csrc/radon_group.cu`` (see
-    :func:`_project_group_cc`)."""
-    _check_device(p)
-    bf16 = _compute_flag(cdt)
-    K, S = Wc.shape
-    B, A, _ = p.shape
-    dev = p.device
-    _check("p", p, (B, A, S), dev)
-    _check_group_plan(pos, shift, spec, Wc, Ws, A, N, K, S, dev)
-    G = adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count)
-    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
-    part = (torch.empty((G, B, N, N), dtype=torch.float32, device=dev)
-            if G > 1 else None)
-    with torch.cuda.device(dev):
-        _launch("radon_group_backproject",
-                p.data_ptr(), pos.data_ptr(), shift.data_ptr(), spec.data_ptr(),
-                Wc.data_ptr(), Ws.data_ptr(), shat.data_ptr(),
-                None if part is None else part.data_ptr(), out.data_ptr(),
-                B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16)
-    _backproject_group_cc.launches += 1
-    return out
-
-
 def build_group_tables(pos, shift, spec, L):
     """The per-angle tensor-core route's trig tables of one angle group:
     (2, A, Np, 2Kp) bf16, [T̂, φ] with (re, im) interleaved along the
     frequency axis, Np = 128·⌈N/128⌉, 2Kp = 128·⌈2K/128⌉, zero-padded (layout
     of :func:`_group_tables`). K is read off ``spec``. CPU tensors run
     :func:`_group_tables`; CUDA tensors launch the kernel of
-    ``csrc/radon_group_tc.cu``, which forms each value with the CUDA-core
-    kernels' arithmetic."""
+    ``csrc/radon_group_tc.cu``, which forms each value as the plain builder
+    does."""
     if pos.device.type == "cpu":
         return _group_tables(pos, shift, spec, L)
     _check_device(pos)
@@ -873,7 +757,7 @@ def build_group_split_tables(pos, shift, spec, L):
     as in :func:`build_group_tables` (layout of :func:`_group_split_tables`).
     K is read off ``spec``. CPU tensors run :func:`_group_split_tables`;
     CUDA tensors launch the kernel of ``csrc/radon_group_split.cu``, which
-    forms each value with the CUDA-core kernels' arithmetic."""
+    forms each value as the plain builder does."""
     if pos.device.type == "cpu":
         return _group_split_tables(pos, shift, spec, L)
     _check_device(pos)
@@ -1010,9 +894,8 @@ def backproject_group(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
 
 def reset_launch_counts():
     for fn in (project_pair_group, backproject_pair_group, build_pair_tables,
-               build_pair_split_tables, _project_pair_cc, _backproject_pair_cc,
-               project_group, backproject_group, build_group_tables, build_group_split_tables,
-               _project_group_cc, _backproject_group_cc):
+               build_pair_split_tables, project_group, backproject_group, build_group_tables,
+               build_group_split_tables):
         fn.launches = 0
     for fn in (project_pair_group, backproject_pair_group, project_group, backproject_group):
         fn.launches_tc = 0

@@ -14,18 +14,14 @@ vary one thing of a shipped projector kernel each:
   (``project_group_packed`` / ``backproject_group_packed``, bodies
   ``_fwd_kernel_packed`` / ``_adj_kernel_packed``).
 
-Both probes run on the tensor cores with their trig made on chip, no trig
-table read: the pair probe in ``csrc/radon_pair_proto_tc.cu`` (``wgmma``,
-T̂ and both members' φ from the host seeds, or the no-trig mul-adds from
-the plan rows), the packed probe in ``csrc/radon_proto_tc.cu`` (T̂ and φ
-from the plan rows). Their CUDA-core kernels of ``csrc/radon_proto.cu``
-stay as the A/B baseline, ``_project_pair_group_doubling_cc`` /
-``_project_pair_group_notrig_cc`` and ``_project_group_packed_cc`` /
-``_backproject_group_packed_cc``, which no wrapper dispatches to. For a
-CUDA tensor each wrapper launches its kernel
-(and raises if it cannot); for a CPU tensor it runs the plain version
-below, which computes what the Pallas body computes, with bf16 rounding
-where the body casts. ``doubling_trig_rows`` is the port of
+Both probes run on the tensor cores (``wgmma``; bf16 operands, float32 as
+split-bf16 products) with their trig made on chip, no trig table read: the
+pair probe in ``csrc/radon_pair_proto_tc.cu`` (T̂ and both members' φ from
+the host seeds, or the no-trig mul-adds from the plan rows), the packed
+probe in ``csrc/radon_proto_tc.cu`` (T̂ and φ from the plan rows). For a
+CUDA tensor each wrapper launches its kernel (and raises if it cannot); for
+a CPU tensor it runs the plain version below, which computes what the
+Pallas body computes, with bf16 rounding where the body casts. ``doubling_trig_rows`` is the port of
 ``pdunet_tpu/ops/radon/pallas_kernels.py::_doubling_trig_rows`` and
 ``phase_seeds`` of ``scripts/trig_proto.py::_phase_seeds``.
 
@@ -33,7 +29,7 @@ Trig of the packed pair (as in the Pallas bodies' ``_angle_tensors``):
 exact in float32, block doubling from in-kernel float32 seeds with bf16
 operands; ``doubling=`` overrides the rule (the probe times packed with
 exact trig against the shipped per-angle kernel, which uses exact trig).
-Both kernel families make the doubled rows with :func:`doubling_trig_rows`'
+The kernels make the doubled rows with :func:`doubling_trig_rows`'
 products in its order, so their trig equals the plain version's.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
@@ -61,7 +57,6 @@ from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     _spectral_tensors,
     _tc_dims,
     _tc_pad,
-    adjoint_splits,
     group_adjoint_splits,
 )
 
@@ -213,16 +208,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry point → argument types; "radon_proto_<op>" lives in
-# csrc/radon_proto.cu, "radon_proto_tc_<op>" in csrc/radon_proto_tc.cu,
-# "radon_pair_proto_tc_<op>" in csrc/radon_pair_proto_tc.cu
+# C entry point → argument types; "radon_proto_tc_<op>" lives in
+# csrc/radon_proto_tc.cu, "radon_pair_proto_tc_<op>" in
+# csrc/radon_pair_proto_tc.cu
 _ARGTYPES = {
     "radon_pair_proto_tc_doubling": [_P] * 10 + [_I] * 10 + [_P],
     "radon_pair_proto_tc_notrig": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P],
-    "radon_proto_pairdoubling": [_P] * 9 + [_I] * 5 + [_I, _I, _P],
-    "radon_proto_pairnotrig": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
-    "radon_proto_packedproject": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
-    "radon_proto_packedbackproject": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "radon_proto_tc_project": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _I, _P],
     "radon_proto_tc_backproject": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _I, _P],
 }
@@ -354,43 +345,6 @@ def project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
     return out
 
 
-def _project_pair_group_doubling_cc(f, seeds0, steps, sgn, spec, Wc, Ws,
-                                    contract_x: bool, cdt=torch.float32):
-    """The CUDA-core doubling pair forward of ``csrc/radon_proto.cu``: the
-    A/B baseline of :func:`project_pair_group_doubling`
-    (``scripts/trig_proto.py``, ``chip_smoke.py``), which no dispatch
-    reaches. CPU tensors run :func:`_project_pair_group_doubling`."""
-    if f.device.type == "cpu":
-        return _project_pair_group_doubling(f, seeds0, steps, sgn, spec, Wc, Ws,
-                                            contract_x, cdt)
-    bf16, B, N, P, K, S, dev = _doubling_args(f, seeds0, steps, sgn, spec, Wc, Ws, cdt)
-    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
-    rc = _launch("radon_proto_pairdoubling", f, seeds0, steps, sgn, spec, Wc, Ws,
-                 shat, out, B, N, P, K, S, int(contract_x), bf16)
-    _project_pair_group_doubling_cc.launches += 1
-    _raise_on(rc, "_project_pair_group_doubling_cc")
-    return out
-
-
-def _project_pair_group_notrig_cc(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
-                                  contract_x: bool, cdt=torch.float32):
-    """The CUDA-core no-trig pair forward of ``csrc/radon_proto.cu`` (see
-    :func:`_project_pair_group_doubling_cc`). CPU tensors run
-    :func:`_project_pair_group_notrig`."""
-    if f.device.type == "cpu":
-        return _project_pair_group_notrig(f, pos, sha, shb, sgn, spec, Wc, Ws, L,
-                                          contract_x, cdt)
-    bf16, B, N, P, K, S, dev = _notrig_args(f, pos, sha, shb, sgn, spec, Wc, Ws, L, cdt)
-    out = torch.empty((B, 2 * P, S), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, 2 * P, K, 2), dtype=torch.float32, device=dev)
-    rc = _launch("radon_proto_pairnotrig", f, pos, sha, shb, sgn, spec, Wc, Ws,
-                 shat, out, B, N, P, K, S, 2.0 * math.pi / L, int(contract_x), bf16)
-    _project_pair_group_notrig_cc.launches += 1
-    _raise_on(rc, "_project_pair_group_notrig_cc")
-    return out
-
-
 def _packed_window(Np: int) -> int:
     """Rows of T̂ one block of a tensor-core probe forward keeps in shared
     memory (csrc/radon_proto_tc.cu, radon_pair_proto_tc.cu; at most
@@ -415,8 +369,7 @@ def _exact_in_f32(cdt, doubling):
     drifts by ~N·eps_f32, above the float32 contract."""
     if cdt == torch.float32 and doubling:
         raise ValueError("the float32 tensor-core packed kernels make exact trig only; "
-                         "doubling=True with float32 runs on the CPU or in "
-                         "_project_group_packed_cc / _backproject_group_packed_cc")
+                         "doubling=True with float32 runs on the CPU only")
 
 
 def project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
@@ -489,52 +442,8 @@ def backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N
     return out
 
 
-def _project_group_packed_cc(f, pos, shift, spec, Wc, Ws, L, contract_x: bool,
-                             cdt=torch.float32, doubling=None):
-    """The CUDA-core packed forward of ``csrc/radon_proto.cu``: the A/B
-    baseline of :func:`project_group_packed` (``scripts/pack_proto.py``,
-    ``chip_smoke.py``), which no dispatch reaches. CPU tensors run
-    :func:`_project_group_packed`."""
-    if f.device.type == "cpu":
-        return _project_group_packed(f, pos, shift, spec, Wc, Ws, L, contract_x,
-                                     cdt, doubling)
-    B, N, _ = f.shape
-    bf16, dbl, K, S, A, dev = _packed_args(f, pos, shift, spec, Wc, Ws, N, cdt, doubling)
-    _check("f", f, (B, N, N), dev)
-    out = torch.empty((B, A, S), dtype=torch.float32, device=dev)
-    rows = torch.empty((B, A, 4 * K), dtype=torch.float32, device=dev)
-    rc = _launch("radon_proto_packedproject", f, pos, shift, spec, Wc, Ws, rows, out,
-                 B, N, A, K, S, 2.0 * math.pi / L, int(contract_x), bf16, dbl)
-    _project_group_packed_cc.launches += 1
-    _raise_on(rc, "_project_group_packed_cc")
-    return out
-
-
-def _backproject_group_packed_cc(p, pos, shift, spec, Wc, Ws, L, contract_x: bool, N: int,
-                                 cdt=torch.float32, doubling=None):
-    """The CUDA-core packed adjoint of ``csrc/radon_proto.cu`` (see
-    :func:`_project_group_packed_cc`)."""
-    if p.device.type == "cpu":
-        return _backproject_group_packed(p, pos, shift, spec, Wc, Ws, L, contract_x,
-                                         cdt, doubling)
-    B, A, S = p.shape
-    bf16, dbl, K, S, A, dev = _packed_args(p, pos, shift, spec, Wc, Ws, N, cdt, doubling)
-    _check("p", p, (B, A, S), dev)
-    G = adjoint_splits(B, N, A, torch.cuda.get_device_properties(dev).multi_processor_count)
-    out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
-    shat = torch.empty((B, A, K, 2), dtype=torch.float32, device=dev)
-    part = torch.empty((G, B, N, N), dtype=torch.float32, device=dev) if G > 1 else None
-    rc = _launch("radon_proto_packedbackproject", p, pos, shift, spec, Wc, Ws, shat,
-                 part, out, B, N, A, K, S, G, 2.0 * math.pi / L, int(contract_x), bf16, dbl)
-    _backproject_group_packed_cc.launches += 1
-    _raise_on(rc, "_backproject_group_packed_cc")
-    return out
-
-
 _LAUNCHERS = (project_pair_group_doubling, project_pair_group_notrig,
-              _project_pair_group_doubling_cc, _project_pair_group_notrig_cc,
-              project_group_packed, backproject_group_packed,
-              _project_group_packed_cc, _backproject_group_packed_cc)
+              project_group_packed, backproject_group_packed)
 
 
 def reset_launch_counts():

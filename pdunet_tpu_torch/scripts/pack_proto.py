@@ -13,9 +13,7 @@ packed 2K once). Here, per operand type, on the x group of a plan:
                 (``radon_proto_tc.cu``: ``wgmma``, T̂ and φ computed on chip
                 from the plan rows, no table) with its trig rule: block
                 doubling with bf16 operands, exact in float32;
-  packed exact — the same kernels with exact trig (bf16 only);
-  CUDA cores  — the packed CUDA-core kernels of ``radon_proto.cu``, the A/B
-                baseline (``_project_group_packed_cc`` / ``_backproject_...``).
+  packed exact — the same kernels with exact trig (bf16 only).
 
 It checks packed against shipped (bf16 with exact trig ≤ 5e-3, float32
 ≤ 1e-5, relative norm), prints the tables' build time on its own line, and
@@ -57,8 +55,6 @@ from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     project_group,
 )
 from pdunet_tpu_torch.ops.radon.proto_kernels import (
-    _backproject_group_packed_cc,
-    _project_group_packed_cc,
     backproject_group_packed,
     project_group_packed,
 )
@@ -178,7 +174,6 @@ def run(plan_name: str = "flagship", device="cuda") -> dict:
                         "packed": lambda x, c=cdt: project_group_packed(x, *rows, c),
                         "packed_exact": lambda x, c=cdt: project_group_packed(
                             x, *rows, c, doubling=False),
-                        "cc": lambda x, c=cdt: _project_group_packed_cc(x, *rows, c),
                     },
                     "adj": {
                         "shipped": lambda y, c=cdt, t=tab: backproject_group(
@@ -186,7 +181,6 @@ def run(plan_name: str = "flagship", device="cuda") -> dict:
                         "packed": lambda y, c=cdt: backproject_group_packed(y, *rows, N, c),
                         "packed_exact": lambda y, c=cdt: backproject_group_packed(
                             y, *rows, N, c, doubling=False),
-                        "cc": lambda y, c=cdt: _backproject_group_packed_cc(y, *rows, N, c),
                     },
                 }
                 if cdt == f32:  # float32's own rule is exact trig

@@ -13,10 +13,7 @@ per-plan tables. Per operand type, on the x group of a plan, this A/Bs:
                 doubling from per-pair seeds, no table read);
   no-trig-tc  — ``project_pair_group_notrig`` (the same kernels with the trig
                 replaced by mul-adds of the same shape: no table read and no
-                trig, wrong numbers);
-  doubling-cc, no-trig-cc — the CUDA-core kernels of ``radon_proto.cu``, the
-                A/B baseline (``_project_pair_group_doubling_cc`` /
-                ``_project_pair_group_notrig_cc``).
+                trig, wrong numbers).
 
 It checks doubling against shipped (max |Δ| / max |shipped| < 2e-2, the JAX
 script's check), prints the tables' build time on its own line, and times
@@ -51,15 +48,13 @@ from pdunet_tpu_torch.ops.radon.cuda_kernels import (
     project_pair_group,
 )
 from pdunet_tpu_torch.ops.radon.proto_kernels import (
-    _project_pair_group_doubling_cc,
-    _project_pair_group_notrig_cc,
     phase_seeds,
     project_pair_group_doubling,
     project_pair_group_notrig,
 )
 
 PLANS = ("flagship", "dense", "fan")
-VARIANTS = ("shipped", "doubling_tc", "notrig_tc", "doubling_cc", "notrig_cc")
+VARIANTS = ("shipped", "doubling_tc", "notrig_tc")
 
 
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -144,10 +139,6 @@ def run(plan_name: str = "flagship", device="cuda") -> dict:
                     "doubling_tc": lambda x, c=cdt: project_pair_group_doubling(
                         x, *seeds, rows[3], *consts, True, c),
                     "notrig_tc": lambda x, c=cdt: project_pair_group_notrig(
-                        x, *rows, *consts, L, True, c),
-                    "doubling_cc": lambda x, c=cdt: _project_pair_group_doubling_cc(
-                        x, *seeds, rows[3], *consts, True, c),
-                    "notrig_cc": lambda x, c=cdt: _project_pair_group_notrig_cc(
                         x, *rows, *consts, L, True, c),
                 }
                 err = rel_max(fns["doubling_tc"](f), fns["shipped"](f))

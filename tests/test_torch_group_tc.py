@@ -200,8 +200,8 @@ def test_tiled_pair_adjoint_dot_product(plans, grp):
 
 def test_cuda_bf16_call_without_tables_raises(plans, monkeypatch):
     """The tensor-core route needs the plan's tables: a CUDA bf16 call
-    without them raises before any launch (no fallback to the CUDA-core
-    kernels or the plain version)."""
+    without them raises before any launch (no fallback to the split route
+    or the plain version)."""
     _, tp = plans
     monkeypatch.setattr(cuda_kernels, "_check_device", lambda x: None)
     args = (*_rows(tp, "x"), tp.spec, tp.Wc, tp.Ws, tp.meta["S_ext"], True)

@@ -13,10 +13,9 @@ versions there). Here:
   * every doubling tree the kernels make is one whose CPU transcription
     tests/test_torch_proto_tc.py holds to doubling_trig_rows bit for bit;
   * the kernels' build hash covers every header they include;
-  * routing: CPU calls run the plain versions and launch nothing, the
-    CUDA-core baselines stay reachable as _project_pair_group_doubling_cc /
-    _project_pair_group_notrig_cc, and a CUDA call hands its C entry point
-    one argument per declared type, which match the C signature;
+  * routing: CPU calls run the plain versions and launch nothing, and a
+    CUDA call hands its C entry point one argument per declared type, which
+    match the C signature;
   * ``python -m pdunet_tpu_torch.scripts.trig_proto --cpu --plan P`` runs
     on each of its plans.
 """
@@ -198,31 +197,26 @@ def _args(plan, grp, bf16):
             "notrig": (*rows, *consts, L, grp == "x", _cdt(bf16))}
 
 
-_WRAPPERS = {"doubling": ("project_pair_group_doubling", "_project_pair_group_doubling_cc",
-                          "_project_pair_group_doubling"),
-             "notrig": ("project_pair_group_notrig", "_project_pair_group_notrig_cc",
-                        "_project_pair_group_notrig")}
+_WRAPPERS = {"doubling": ("project_pair_group_doubling", "_project_pair_group_doubling"),
+             "notrig": ("project_pair_group_notrig", "_project_pair_group_notrig")}
 
 
 def test_cpu_calls_run_plain_versions_and_launch_nothing(plans):
-    """Both pair wrappers and their CUDA-core baselines run the plain
-    versions on CPU tensors and count no launch; a tensor on another device
-    has no kernel."""
+    """Both pair wrappers run the plain versions on CPU tensors and count
+    no launch; a tensor on another device has no kernel."""
     _, tp = plans[("fan", False)]
     proto_kernels.reset_launch_counts()
     f = torch.randn(2, N, N, generator=torch.Generator().manual_seed(23))
     for bf16 in (False, True):
         args = _args(tp, "x", bf16)
         for body, names in _WRAPPERS.items():
-            tc, cc, plain = (getattr(proto_kernels, n) for n in names)
-            ref = plain(f, *args[body])
-            assert torch.equal(tc(f, *args[body]), ref)
-            assert torch.equal(cc(f, *args[body]), ref)
-    for body, names in _WRAPPERS.items():
-        for fn in (getattr(proto_kernels, n) for n in names[:2]):
-            assert fn.launches == 0
-            with pytest.raises(ValueError, match="no kernel"):
-                fn(torch.zeros(1, N, N, device="meta"), *_args(tp, "x", False)[body])
+            tc, plain = (getattr(proto_kernels, n) for n in names)
+            assert torch.equal(tc(f, *args[body]), plain(f, *args[body]))
+    for body, (name, _) in _WRAPPERS.items():
+        fn = getattr(proto_kernels, name)
+        assert fn.launches == 0
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(torch.zeros(1, N, N, device="meta"), *_args(tp, "x", False)[body])
 
 
 def _c_signature(source, entry):
@@ -254,8 +248,8 @@ def _meta(args):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_cuda_calls_match_the_c_entry_points(plans, monkeypatch, bf16):
     """A CUDA call (meta tensors standing in for the card's; the launch
-    recorded, not made) of each pair wrapper and CUDA-core baseline passes
-    its C entry point one argument per parameter, pointers as tensors, ints
+    recorded, not made) of each pair wrapper passes its C entry point one
+    argument per parameter, pointers as tensors, ints
     and the float where the signature has them, and counts one launch; the
     argument types declared for ctypes match the signature. The
     tensor-core calls take no table: seeds (doubling) or plan rows."""
@@ -265,15 +259,12 @@ def test_cuda_calls_match_the_c_entry_points(plans, monkeypatch, bf16):
     proto_kernels.reset_launch_counts()
     m = tp.meta
     f = torch.zeros(2, N, N, device="meta")
-    for body, (tc, cc, _) in _WRAPPERS.items():
+    for body, (name, _) in _WRAPPERS.items():
         args = _meta(_args(tp, "x", bf16)[body])
-        for name in (tc, cc):
-            assert getattr(proto_kernels, name)(f, *args).shape == (2, 2 * m["P_x"], m["S"])
-            assert getattr(proto_kernels, name).launches == 1
+        assert getattr(proto_kernels, name)(f, *args).shape == (2, 2 * m["P_x"], m["S"])
+        assert getattr(proto_kernels, name).launches == 1
     sources = {"radon_pair_proto_tc_doubling": "radon_pair_proto_tc.cu",
-               "radon_proto_pairdoubling": "radon_proto.cu",
-               "radon_pair_proto_tc_notrig": "radon_pair_proto_tc.cu",
-               "radon_proto_pairnotrig": "radon_proto.cu"}
+               "radon_pair_proto_tc_notrig": "radon_pair_proto_tc.cu"}
     assert [name for name, _ in recorded] == list(sources)
     ctype_kind = {proto_kernels._P: "p", proto_kernels._I: "i", proto_kernels._F: "f"}
     for name, args in recorded:
@@ -286,7 +277,7 @@ def test_cuda_calls_match_the_c_entry_points(plans, monkeypatch, bf16):
             else:
                 assert isinstance(a, float if k == "f" else int)
         assert args[-1] == int(bf16)
-    for name, args in recorded[::2]:
+    for name, args in recorded:
         # (B, N, Np, P, K, Kp, S, Dw): one depth window of Np = 128 rows
         ints = [a for a in args if isinstance(a, int)][:8]
         assert ints == [2, N, 128, m["P_x"], m["K"], 64, m["S"], 128]

@@ -176,8 +176,8 @@ def test_split_pair_dot_test(plans, grp):
 
 def test_cuda_f32_call_without_tables_raises(plans, monkeypatch):
     """The float32 route needs the plan's split tables: a CUDA float32 call
-    without them raises before any launch (no fallback to the CUDA-core
-    kernels)."""
+    without them raises before any launch (no fallback to another
+    kernel)."""
     _, tp = plans
     monkeypatch.setattr(cuda_kernels, "_check_device", lambda x: None)
     cuda_kernels.reset_launch_counts()
@@ -194,8 +194,8 @@ def test_cuda_f32_call_without_tables_raises(plans, monkeypatch):
     with pytest.raises(ValueError, match="split trig tables"):
         cuda_kernels.project_pair_group(f, *rows[:4], tp.spec, tp.Wc, tp.Ws, L, True,
                                         tables=tab)
-    assert cuda_kernels._project_pair_cc.launches == 0
-    assert cuda_kernels._backproject_pair_cc.launches == 0
+    assert cuda_kernels.project_pair_group.launches == 0
+    assert cuda_kernels.backproject_pair_group.launches == 0
 
 
 def test_cpu_f32_operators_build_no_split_tables():

@@ -16,10 +16,9 @@ versions there). Here:
   * the kernels' doubling, each row the seed rotated by the rotors of its
     index's set bits (lowest first, shared along a tree of rows), is
     doubling_trig_rows bit for bit, so no other plain twin is needed;
-  * routing: CPU calls run the plain versions and launch nothing, the
-    CUDA-core baseline stays reachable as _project_group_packed_cc /
-    _backproject_group_packed_cc, and a CUDA call hands the C entry point
-    one argument per declared type, which match the C signature.
+  * routing: CPU calls run the plain versions and launch nothing, and a
+    CUDA call hands the C entry point one argument per declared type, which
+    match the C signature.
 """
 
 import importlib.util
@@ -224,8 +223,8 @@ def test_packed_window():
 
 
 def test_cpu_calls_run_plain_versions_and_launch_nothing(radial):
-    """Both packed wrappers and the CUDA-core baseline run the plain
-    versions on CPU tensors and count no launch."""
+    """Both packed wrappers run the plain versions on CPU tensors and count
+    no launch."""
     _, tp = radial
     proto_kernels.reset_launch_counts()
     gen = torch.Generator().manual_seed(13)
@@ -235,21 +234,14 @@ def test_cpu_calls_run_plain_versions_and_launch_nothing(radial):
         for doubling in (None, False, True):
             kw = dict(cdt=cdt, doubling=doubling)
             fwd = proto_kernels.project_group_packed(f, *_rows(tp, "x"), **kw)
-            assert torch.equal(fwd, proto_kernels._project_group_packed_cc(f, *_rows(tp, "x"), **kw))
             assert torch.equal(fwd, proto_kernels._project_group_packed(f, *_rows(tp, "x"), **kw))
             adj = proto_kernels.backproject_group_packed(p, *_rows(tp, "x"), N, **kw)
-            assert torch.equal(adj, proto_kernels._backproject_group_packed_cc(
-                p, *_rows(tp, "x"), N, **kw))
             assert torch.equal(adj, proto_kernels._backproject_group_packed(
                 p, *_rows(tp, "x"), **kw))
-    for fn in (proto_kernels.project_group_packed, proto_kernels.backproject_group_packed,
-               proto_kernels._project_group_packed_cc,
-               proto_kernels._backproject_group_packed_cc):
+    for fn in (proto_kernels.project_group_packed, proto_kernels.backproject_group_packed):
         assert fn.launches == 0
-    meta = torch.zeros(1, N, N, device="meta")
-    for fn in (proto_kernels.project_group_packed, proto_kernels._project_group_packed_cc):
-        with pytest.raises(ValueError, match="no kernel"):
-            fn(meta, *_rows(tp, "x"))
+    with pytest.raises(ValueError, match="no kernel"):
+        proto_kernels.project_group_packed(torch.zeros(1, N, N, device="meta"), *_rows(tp, "x"))
 
 
 def _c_signature(entry):
@@ -308,8 +300,8 @@ def test_cuda_calls_match_the_c_entry_points(radial, monkeypatch, bf16):
 
 def test_cuda_f32_doubling_is_refused(radial, monkeypatch):
     """The float32 tensor-core kernels make exact trig only: a CUDA float32
-    call asking for doubling raises before any launch (the CPU and the
-    CUDA-core baseline still run it)."""
+    call asking for doubling raises before any launch (the CPU still runs
+    it)."""
     _, tp = radial
     monkeypatch.setattr(proto_kernels, "_check_device", lambda x: None)
     monkeypatch.setattr(proto_kernels, "_launch", lambda *a: pytest.fail("launched"))

@@ -13,7 +13,10 @@ Pallas kernels. The kernels themselves run only on a card: chip_smoke.py
 holds them against the same plain versions there.
 """
 
+import contextlib
+import functools
 import math
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -348,11 +351,34 @@ def test_group_wrappers_count_nothing_on_cpu_and_refuse_other_devices(golden):
             torch.zeros(1, tp.meta["A_x"], N, device="meta"), *args, N)
 
 
-def test_adjoint_splits_fill_the_card():
-    """The per-angle adjoint's angle split: about four 64x64-tile blocks per
-    SM, never more slices than angles, one slice when the tiles alone fill
-    the card."""
-    assert cuda_kernels.adjoint_splits(8, 256, 64, 132) == 5    # 128 tiles → 640 blocks
-    assert cuda_kernels.adjoint_splits(2, 256, 64, 132) == 17
-    assert cuda_kernels.adjoint_splits(2, 32, 3, 132) == 3
-    assert cuda_kernels.adjoint_splits(64, 256, 64, 132) == 1
+def test_adjoint_splits_fill_the_card(monkeypatch):
+    """The per-angle adjoint, on either CUDA route, hands its C entry point
+    the depth split of group_adjoint_splits at the route's output tile
+    width (128 x 256 bf16, 128 x 128 split) on the card's SM count: one
+    wave of one block per SM, never more slices than angles, one slice when
+    the tiles alone fill the card. Meta tensors stand in for the card's;
+    the launch is recorded, not made."""
+    recorded = []
+    monkeypatch.setattr(cuda_kernels, "_check_device", lambda x: None)
+    monkeypatch.setattr(cuda_kernels, "_launch", lambda name, *a: recorded.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    n, A, K, S = 256, 64, 256, 1024   # pdunet_radial's per-angle shape
+    meta = functools.partial(torch.zeros, device="meta")
+    rows = (meta(A, n), meta(A, n), meta(K), meta(K, S), meta(K, S), 2 * K, True)
+    Np, K2p = cuda_kernels._tc_dims(n, K)
+    tables = {torch.bfloat16: meta(2, A, Np, K2p, dtype=torch.bfloat16),
+              torch.float32: (meta(2, A, Np, K2p, dtype=torch.bfloat16),
+                              meta(1, A, Np, K2p))}
+    # (batch, bf16 slices, split slices): 16 / 32 tiles at B' = 8
+    for B, g_tc, g_split in ((8, 8, 4), (1, 64, 33), (2, 33, 16), (256, 1, 1)):
+        for cdt, want in ((torch.bfloat16, g_tc), (torch.float32, g_split)):
+            recorded.clear()
+            out = cuda_kernels.backproject_group(meta(B, A, S), *rows, n, cdt,
+                                                 tables=tables[cdt])
+            assert out.shape == (B, n, n)
+            (name, args), = recorded
+            assert name == ("radon_group_tc_backproject" if cdt == torch.bfloat16
+                            else "radon_group_split_backproject")
+            assert args[-2] == want, (B, cdt)
